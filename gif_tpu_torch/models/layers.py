@@ -1,0 +1,223 @@
+"""``nn.Module`` wrappers around the functional ops, NCHW.
+
+Port of :mod:`gif_tpu.models.layers` (``EqualLinear``, ``ModulatedConv2d``,
+``ConditionInjection``, ``StyledConv``, ``ToRGB``, ``MappingNetwork``).
+Parameter names follow the flax tree (``weight``/``bias``, ``modulation``,
+``noise.conv0``..., ``act_bias``, ``dense{i}``) so
+:mod:`gif_tpu_torch.tools.convert_params` maps it one to one; conv weights
+are OIHW.  Initialisation draws from the given ``torch.Generator`` with the
+reference's distributions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from gif_tpu_torch import ops
+
+
+def _normal(shape, std: float, generator: torch.Generator | None) -> nn.Parameter:
+    return nn.Parameter(torch.randn(shape, generator=generator) * std)
+
+
+def _const(shape, value: float) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, float(value)))
+
+
+class EqualLinear(nn.Module):
+    """Equalized linear layer (weight ~ N(0, scale_weight / lr_mul))."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        bias: bool = True,
+        bias_init: float = 0.0,
+        lr_mul: float = 1.0,
+        activation: bool = False,
+        scale_weight: float = 1.0,
+        apply_sqrt2: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.weight = _normal((out_dim, in_dim), scale_weight / lr_mul, generator)
+        self.bias = _const((out_dim,), bias_init) if bias else None
+        self.lr_mul = lr_mul
+        self.activation = activation
+        self.apply_sqrt2 = apply_sqrt2
+
+    def forward(self, x):
+        return ops.equal_linear(
+            x,
+            self.weight,
+            self.bias,
+            lr_mul=self.lr_mul,
+            activation=self.activation,
+            apply_sqrt2=self.apply_sqrt2,
+        )
+
+
+class ModulatedConv2d(nn.Module):
+    """Modulated conv; styles and demodulation in f32, the conv in
+    ``dtype``."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        out_ch: int,
+        kernel_size: int,
+        demodulate: bool = True,
+        upsample: bool = False,
+        blur_taps=(1, 3, 3, 1),
+        apply_sqrt2: bool = False,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.weight = _normal((out_ch, in_ch, kernel_size, kernel_size), 1.0, generator)
+        self.modulation = EqualLinear(
+            512, in_ch, bias_init=1.0, apply_sqrt2=apply_sqrt2, generator=generator
+        )
+        self.demodulate = demodulate
+        self.upsample = upsample
+        self.blur_taps = tuple(blur_taps)
+        self.dtype = dtype
+
+    def forward(self, x, latent):
+        return ops.modulated_conv2d(
+            x.to(self.dtype),
+            self.weight,
+            self.modulation(latent),
+            demodulate=self.demodulate,
+            upsample=self.upsample,
+            blur_taps=self.blur_taps,
+        )
+
+
+class ConditionInjection(nn.Module):
+    """The GIF condition-as-noise injection net: 3x3 convs c -> 2c -> 4c ->
+    out with ReLUs over the resized condition maps, added to the features.
+    Tiny init (std 0.01, bias 1e-4)."""
+
+    def __init__(
+        self,
+        cond_ch: int,
+        out_ch: int,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        chans = [cond_ch, 2 * cond_ch, 4 * cond_ch, out_ch]
+        for i in range(3):
+            conv = nn.Module()
+            conv.weight = _normal((chans[i + 1], chans[i], 3, 3), 0.01, generator)
+            conv.bias = _const((chans[i + 1],), 1e-4)
+            setattr(self, f"conv{i}", conv)
+        self.dtype = dtype
+
+    def forward(self, features, cond):
+        h = cond.to(self.dtype)
+        for i in range(3):
+            conv = getattr(self, f"conv{i}")
+            h = F.conv2d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype), padding=1)
+            if i < 2:
+                h = F.relu(h)
+        return features + h.to(features.dtype)
+
+
+class StyledConv(nn.Module):
+    """ModulatedConv2d -> ConditionInjection -> fused bias+lrelu (kernel 3),
+    clamped to +-256 in low precision."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        out_ch: int,
+        cond_ch: int,
+        kernel_size: int = 3,
+        upsample: bool = False,
+        demodulate: bool = True,
+        apply_sqrt2: bool = False,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.conv = ModulatedConv2d(
+            in_ch,
+            out_ch,
+            kernel_size,
+            demodulate=demodulate,
+            upsample=upsample,
+            apply_sqrt2=apply_sqrt2,
+            dtype=dtype,
+            generator=generator,
+        )
+        self.noise = ConditionInjection(cond_ch, out_ch, dtype=dtype, generator=generator)
+        self.act_bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x, latent, cond):
+        x = self.conv(x, latent)
+        x = self.noise(x, cond)
+        x = ops.fused_leaky_relu(x, self.act_bias)
+        if x.dtype != torch.float32:
+            x = torch.clamp(x, -256.0, 256.0)
+        return x
+
+
+class ToRGB(nn.Module):
+    """1x1 demod-free modulated conv + bias, accumulated in f32 onto the
+    upsampled skip."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        apply_sqrt2: bool = False,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.conv = ModulatedConv2d(
+            in_ch, 3, 1, demodulate=False, apply_sqrt2=apply_sqrt2, dtype=dtype,
+            generator=generator,
+        )
+        self.bias = nn.Parameter(torch.zeros(3))
+
+    def forward(self, x, latent, skip=None):
+        out = self.conv(x, latent).float() + self.bias[None, :, None, None]
+        if skip is not None:
+            out = out + ops.upsample_2x(skip)
+        return out
+
+
+class MappingNetwork(nn.Module):
+    """PixelNorm + n_mlp EqualLinear(lr_mul, leaky-relu) z -> w mapping."""
+
+    def __init__(
+        self,
+        n_mlp: int = 8,
+        style_dim: int = 512,
+        lr_mul: float = 0.01,
+        scale_weight: float = 1.0,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.n_mlp = n_mlp
+        for i in range(n_mlp):
+            setattr(
+                self,
+                f"dense{i}",
+                EqualLinear(
+                    style_dim, style_dim, lr_mul=lr_mul, activation=True,
+                    scale_weight=scale_weight, generator=generator,
+                ),
+            )
+
+    def forward(self, z):
+        if self.n_mlp <= 0:
+            return z
+        h = ops.pixel_norm(z)
+        for i in range(self.n_mlp):
+            h = getattr(self, f"dense{i}")(h)
+        return h

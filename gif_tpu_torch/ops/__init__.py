@@ -1,0 +1,21 @@
+"""The StyleGAN2 op set of the serving path (port of ``gif_tpu.ops``), NCHW.
+
+Kernels: ``activations.fused_leaky_relu`` (kernel 3, Triton) and
+``blur_cuda.blur4`` (kernel 4, CUDA C++).
+"""
+
+from gif_tpu_torch.ops.activations import fused_leaky_relu
+from gif_tpu_torch.ops.conv import equal_conv2d, modulated_conv2d
+from gif_tpu_torch.ops.linear import equal_linear, pixel_norm
+from gif_tpu_torch.ops.upfirdn import blur, upfirdn2d, upsample_2x
+
+__all__ = [
+    "fused_leaky_relu",
+    "equal_conv2d",
+    "modulated_conv2d",
+    "equal_linear",
+    "pixel_norm",
+    "blur",
+    "upfirdn2d",
+    "upsample_2x",
+]

@@ -1,0 +1,9 @@
+"""Mesh rendering in PyTorch + CUDA (port of ``gif_tpu.render``).
+
+- ``raster``: binning, per-face setup and the plain rasterizer;
+- ``raster_cuda``: kernel 1, the rasterizer with fused attribute
+  interpolation, and its CPU/CUDA dispatching wrapper;
+- ``shading``: SH9 shading, PCA albedo and the plain bilinear sampler;
+- ``sampler_cuda``: kernel 2, the albedo sampler, and its wrapper;
+- ``renderer``: ``render_tex_and_normal``, FLAME codes -> condition maps.
+"""

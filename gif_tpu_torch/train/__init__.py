@@ -1,0 +1,5 @@
+"""Training configuration and condition rendering (port of ``gif_tpu.train``)."""
+
+from gif_tpu_torch.train.config import TINY_OVERRIDES, TrainConfig, get_config
+
+__all__ = ["TrainConfig", "get_config", "TINY_OVERRIDES"]

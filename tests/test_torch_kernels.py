@@ -1,0 +1,90 @@
+"""The port's hand-written kernels against their plain PyTorch versions, on
+a card.  Every kernel computes in its plain version's arithmetic order
+with explicitly rounded operations, so the bar is equality.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch (skip the JAX-importing conftest there):
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+Without a CUDA device every test here skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gif_tpu_torch.ops import activations, blur_cuda
+from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, shading
+from torch_port_common import cuda_device  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.cuda
+
+
+def _random_faces(rng, b, n_faces, h, w):
+    centers = rng.uniform(5, min(h, w) - 5, size=(b, n_faces, 1, 2))
+    offsets = rng.uniform(-12, 12, size=(b, n_faces, 3, 2))
+    z = rng.uniform(1.0, 20.0, size=(b, n_faces, 3, 1))
+    return np.concatenate([centers + offsets, z], axis=-1).astype(np.float32)
+
+
+@pytest.mark.parametrize("cap", [256, 16])  # 16: tiles overflow
+def test_raster_kernel_matches_plain(cuda_device, cap):
+    rng = np.random.default_rng(0)
+    fv = torch.from_numpy(_random_faces(rng, 2, 600, 128, 128)).to(cuda_device)
+    attrs = torch.from_numpy(rng.standard_normal((2, 600, 3, 5)).astype(np.float32)).to(cuda_device)
+    before = raster_cuda.rasterize_with_attrs.launches
+    got, got_img = raster_cuda.rasterize_with_attrs(fv, attrs, 128, 128, 32, cap)
+    want, want_img = raster.rasterize_plain(fv, attrs, h=128, w=128, tile=32, max_tris_per_tile=cap)
+    torch.cuda.synchronize()
+    assert raster_cuda.rasterize_with_attrs.launches == before + 1
+    assert (want.tri_id >= 0).float().mean() > 0.3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got_img, want_img)
+
+
+def test_sampler_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.uniform(0, 1, (4, 256, 256, 3)).astype(np.float32)).to(cuda_device)
+    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (4, 64, 64, 2)).astype(np.float32)).to(cuda_device)
+    before = sampler_cuda.grid_sample.launches
+    got = sampler_cuda.grid_sample(img, grid)
+    want = shading.grid_sample_bilinear(img, grid)
+    torch.cuda.synchronize()
+    assert sampler_cuda.grid_sample.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flr_kernel_matches_plain(cuda_device, dtype):
+    x = torch.randn((8, 512, 33, 33), device=cuda_device).to(dtype)
+    b = torch.randn(512, device=cuda_device)
+    before = activations.fused_leaky_relu.launches
+    got = activations.fused_leaky_relu(x, b)
+    want = activations.fused_leaky_relu_plain(x, b)
+    torch.cuda.synchronize()
+    assert activations.fused_leaky_relu.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (2, 1, 0, 3)])
+def test_blur_kernel_matches_plain(cuda_device, dtype, pads):
+    x = torch.randn((4, 64, 65, 67), device=cuda_device).to(dtype)
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), 4.0)
+    before = blur_cuda.blur4.launches
+    got = blur_cuda.blur4(x, taps, pads)
+    want = blur_cuda.blur4_plain(x, taps[::-1], pads)
+    torch.cuda.synchronize()
+    assert blur_cuda.blur4.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_kernel_wrappers_raise_on_unsupported_input(cuda_device):
+    with pytest.raises(ValueError):
+        blur_cuda.blur4(torch.zeros((1, 1, 8, 8), dtype=torch.float16, device=cuda_device),
+                        blur_cuda.taps_1d((1, 3, 3, 1), 1.0), (1, 1, 1, 1))
+    with pytest.raises(ValueError):
+        sampler_cuda.grid_sample(torch.zeros((1, 4, 4, 3), dtype=torch.float64, device=cuda_device),
+                                 torch.zeros((1, 2, 2, 2), dtype=torch.float64, device=cuda_device))

@@ -1,0 +1,137 @@
+"""Port parity of the op set (f32, CPU): fused bias+lrelu against the JAX
+op with and without its Pallas kernel (interpret mode), the 4-tap blur
+against ``blur4_pallas`` (interpret mode) and ``upfirdn2d``, the modulated
+conv (plain and upsample), ``upsample_2x``, ``equal_linear``,
+``pixel_norm``, ``equal_conv2d`` and the bilinear resize (the kernels
+themselves: tests/test_torch_kernels.py).  Tolerances are f32
+reassociation bars (rtol 1e-5; 1e-4 where a conv sums in another order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gif_tpu.ops import activations as ja
+from gif_tpu.ops import blur_pallas as jb
+from gif_tpu.ops import conv as jconv
+from gif_tpu.ops import linear as jl
+from gif_tpu.ops import upfirdn as ju
+from gif_tpu.utils.image import resize_bilinear as j_resize
+from gif_tpu_torch.ops import activations as ta
+from gif_tpu_torch.ops import blur_cuda as tb
+from gif_tpu_torch.ops import conv as tconv
+from gif_tpu_torch.ops import linear as tl
+from gif_tpu_torch.ops import upfirdn as tu
+from gif_tpu_torch.utils.image import resize_bilinear as t_resize
+
+TAPS = (1, 3, 3, 1)
+
+
+def nhwc(x):
+    return np.ascontiguousarray(np.moveaxis(x, 1, -1))
+
+
+def nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(np.asarray(x), -1, 1)))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_fused_leaky_relu_matches_jax(use_pallas):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 8, 5, 6)).astype(np.float32)  # NCHW
+    bias = rng.standard_normal(8).astype(np.float32)
+    want = ja.fused_leaky_relu(jnp.asarray(nhwc(x)), jnp.asarray(bias), use_pallas=use_pallas)
+    before = ta.fused_leaky_relu.launches
+    got = ta.fused_leaky_relu(torch.from_numpy(x), torch.from_numpy(bias))
+    assert ta.fused_leaky_relu.launches == before  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-6, atol=1e-6)
+
+
+# The up-path geometry (gain 4, pads 1,1 on an odd map) and other pads.
+BLUR_CASES = [((1, 1, 1, 1), 4.0, 9), ((2, 2, 2, 2), 1.0, 12), ((0, 3, 3, 0), 1.0, 10)]
+
+
+@pytest.mark.parametrize("pads,gain,size", BLUR_CASES)
+def test_blur_matches_jax_kernel_and_upfirdn(pads, gain, size):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 4, size, size + 1)).astype(np.float32)  # NCHW
+    got = tb.blur4(torch.from_numpy(x), tb.taps_1d(TAPS, gain), pads)
+    want_kernel = jb.blur4_pallas(jnp.asarray(nhwc(x)), jb.taps_1d(TAPS, gain), pads)
+    want_xla = ju.upfirdn2d(jnp.asarray(nhwc(x)), ju._cached_kernel(TAPS, gain), pad=pads)
+    np.testing.assert_allclose(got.numpy(), nchw(want_kernel).numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), nchw(want_xla).numpy(), rtol=1e-5, atol=1e-6)
+    assert tb.taps_1d(TAPS, gain) == jb.taps_1d(TAPS, gain)
+
+
+def test_upsample_2x_and_upfirdn_match_jax():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 7, 8)).astype(np.float32)
+    np.testing.assert_allclose(
+        tu.upsample_2x(torch.from_numpy(x)).numpy(),
+        nchw(ju.upsample_2x(jnp.asarray(nhwc(x)))).numpy(),
+        rtol=1e-5, atol=1e-6,
+    )
+    k = ju._cached_kernel(TAPS, 1.0)
+    np.testing.assert_allclose(
+        tu.upfirdn2d(torch.from_numpy(x), k, down=2, pad=(2, 1)).numpy(),
+        nchw(ju.upfirdn2d(jnp.asarray(nhwc(x)), k, down=2, pad=(2, 1))).numpy(),
+        rtol=1e-5, atol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("upsample,demodulate", [(False, True), (True, True), (False, False)])
+def test_modulated_conv2d_matches_jax(upsample, demodulate):
+    rng = np.random.default_rng(3)
+    k = 1 if not demodulate else 3
+    x = rng.standard_normal((2, 6, 5, 5)).astype(np.float32)
+    w_hwio = rng.standard_normal((k, k, 6, 4)).astype(np.float32)
+    style = (rng.standard_normal((2, 6)) + 1.0).astype(np.float32)
+    want = jconv.modulated_conv2d(
+        jnp.asarray(nhwc(x)), jnp.asarray(w_hwio), jnp.asarray(style),
+        demodulate=demodulate, upsample=upsample,
+    )
+    got = tconv.modulated_conv2d(
+        torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))),
+        torch.from_numpy(style), demodulate=demodulate, upsample=upsample,
+    )
+    assert got.shape[2] == (10 if upsample else 5)
+    np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_equal_conv2d_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 8, 8)).astype(np.float32)
+    w_hwio = rng.standard_normal((3, 3, 5, 7)).astype(np.float32)
+    b = rng.standard_normal(7).astype(np.float32)
+    want = jconv.equal_conv2d(jnp.asarray(nhwc(x)), jnp.asarray(w_hwio), jnp.asarray(b), stride=2, padding=1)
+    got = tconv.equal_conv2d(
+        torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))),
+        torch.from_numpy(b), stride=2, padding=1,
+    )
+    np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("activation,apply_sqrt2", [(False, False), (True, False), (True, True)])
+def test_equal_linear_and_pixel_norm_match_jax(activation, apply_sqrt2):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 16)).astype(np.float32)
+    w = rng.standard_normal((8, 16)).astype(np.float32) * 100
+    b = rng.standard_normal(8).astype(np.float32)
+    kw = dict(lr_mul=0.01, activation=activation, apply_sqrt2=apply_sqrt2)
+    want = jl.equal_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), **kw)
+    got = tl.equal_linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        tl.pixel_norm(torch.from_numpy(x)).numpy(), np.asarray(jl.pixel_norm(jnp.asarray(x))),
+        rtol=1e-5, atol=1e-6,
+    )
+
+
+def test_resize_bilinear_matches_jax():
+    x = np.random.default_rng(6).uniform(-1, 1, size=(2, 256, 256, 6)).astype(np.float32)
+    for s in (4, 8, 32, 128):
+        np.testing.assert_allclose(
+            t_resize(torch.from_numpy(x), s, s).numpy(),
+            np.asarray(j_resize(jnp.asarray(x), s, s)),
+            rtol=1e-5, atol=1e-6,
+        )
