@@ -12,10 +12,10 @@ Phases (each raises on failure; nothing is caught):
 2. build the serving stack at full width — run_id 8, 256 px, 512 channels,
    channel multiplier 2, 8-layer mapping, 69158 identities, bf16 convs,
    FLAME-sized synthetic mesh (5023 vertices), batch 8, seeded weights —
-   and serve one warm-up batch through it, recording the inputs every
-   kernel wrapper receives;
-3. hold every kernel to its plain PyTorch version on those inputs (the main
-   path's shapes) with the tolerance printed, and time kernel, plain
+   and serve one warm-up batch through it, every kernel launch held to its
+   plain PyTorch version on the spot (on the inputs the wrapper received,
+   with the tolerance printed);
+3. time each kernel of that batch at its served shapes: kernel, plain
    version and — where one PyTorch call computes the same function — that
    call;
 4. hold the CUDA path to the CPU plain path end to end on a small input
@@ -24,16 +24,38 @@ Phases (each raises on failure; nothing is caught):
    (full batches of 8 and a padded partial batch), read the counters, and
    check the images, the render overflow and that every kernel launched;
 6. profile one more batch: device busy share and the kernels that take
-   the device time.
+   the device time;
+7. build the run_id-8 train state at the same full width, batch 16, and
+   run one warm-up train step (an R1 step) in which every launch of all
+   six kernels — raster, sampler, fused bias+lrelu forward (kernel 3) and
+   backward (kernel 5), blur (kernel 4) and its VJP — is held to its plain
+   version on the spot, then time each kernel at those shapes;
+8. reset every launch counter, run 3 counted train steps from step 13
+   (R1 fires on the third: (15 + 1) % 16 == 0), read the counters, check
+   losses, R1 schedule, parameter / EMA movement, render overflow and that
+   all six kernels launched; print step times, images/s and peak memory;
+   profile one more step without R1 and one with it; time D's parts of an
+   R1 step alone with CUDA events (loss, R1 forward, R1 parameter
+   backward) and profile R1's parameter backward;
+9. hold R1's parameter gradient through the kernels to the same gradient
+   through the plain versions on a narrow discriminator (f32), and the
+   bf16 policy's to the f32 one;
+10. hold one tiny train step on the card to the CPU plain path (metrics and
+    the G and D gradients from one state).
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
-(the sum of the CUDA kernels and copies a call runs, from torch.profiler),
+(the kernels, copies and memsets a call runs, summed from torch.profiler),
 so host launch overhead is excluded; ``wall_ms`` is a CUDA-event time per
-call over back-to-back calls, which includes it.  Kernels with several
-launches per served batch report sums over that batch's launches.
+call over back-to-back calls, which includes it.  Every number of a kernel
+record is a sum over its launches of one R1 train step (batch 16), each
+distinct input timed once; the forward kernels also carry the same numbers
+for one served batch of 8 under ``serve``.  A profile's busy share is the
+union of its device events' intervals over the host clock.
 
-The last lines are one JSON object with a record per kernel, the card's
-name and power limit as nvidia-smi reports them, and the result line.
+The last lines are one JSON object with a record per kernel (``launches``:
+the counted train steps'; ``serve.launches``: the counted served
+requests'), the card's name and power limit as nvidia-smi
+reports them, and the result line.
 """
 
 from __future__ import annotations
@@ -84,22 +106,44 @@ def device_ms(fn, iters: int = ITERS) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(ms for ms, _ in _device_rows(prof).values()) / iters
+    return sum(e.time_range.elapsed_us() for e in _device_events(prof)) / 1e3 / iters
 
 
-def _device_rows(prof) -> dict:
-    """{kernel name: (total device ms, count)} of a finished profile."""
+def _device_events(prof) -> list:
+    """The kernels, copies and memsets of a finished profile: its device
+    events without the user-annotation ranges (``Optimizer.step#...``) the
+    profiler also lays on the device timeline, which span kernels that
+    have events of their own."""
     import torch
 
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def _busy_ms(events) -> float:
+    """Length of the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def log_profile(prof, wall: float, what: str) -> None:
+    """Device busy share and the kernels that take the device time."""
+    events = _device_events(prof)
     rows = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows[e.key] = (us / 1e3, e.count)
-    return rows
+    for e in events:
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy, total = _busy_ms(events), sum(ms for ms, _ in rows.values())
+    streams = len({getattr(e, "device_resource_id", 0) for e in events})
+    log(f"{what}: {wall:.2f} ms host clock under the profiler, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%: the union of the device events' intervals; their durations "
+        f"sum to {total:.2f} ms on {streams} stream(s)), {len(events)} device ops")
+    for ms, n, name in sorted(((ms, n, k) for k, (ms, n) in rows.items()), reverse=True)[:20]:
+        log(f"  {ms:8.3f} ms  x{n:<4d} {name[:110]}")
 
 
 def wall_ms(fn, iters: int = ITERS) -> float:
@@ -136,41 +180,6 @@ def add_times(tot: dict, t: dict) -> None:
         tot[k] = None if v is None else tot.get(k, 0.0) + v
 
 
-def warm_up_and_capture(server, n: int):
-    """Serve one batch of ``n`` requests (on the server's batcher thread,
-    so its per-thread CUDA state is warm) with every kernel entry of the
-    first batch recorded."""
-    from gif_tpu_torch.ops import activations, blur_cuda
-    from gif_tpu_torch.render import raster_cuda, sampler_cuda
-
-    batches = []
-    targets = [
-        (raster_cuda, "rasterize_cuda", "raster"),
-        (sampler_cuda, "grid_sample_cuda", "sampler"),
-        (activations, "fused_leaky_relu_triton", "flr"),
-        (blur_cuda, "blur4_cuda", "blur"),
-    ]
-    originals = [getattr(mod, name) for mod, name, _ in targets]
-
-    def recorder(orig, key):
-        def rec(*args):
-            if key == "raster":  # each batch renders first
-                batches.append({"raster": [], "sampler": [], "flr": [], "blur": []})
-            batches[-1][key].append(args)
-            return orig(*args)
-
-        return rec
-
-    for (mod, name, key), orig in zip(targets, originals):
-        setattr(mod, name, recorder(orig, key))
-    try:
-        serve_round(server, range(1000, 1000 + n), {})
-    finally:
-        for (mod, name, _), orig in zip(targets, originals):
-            setattr(mod, name, orig)
-    return batches[0]
-
-
 def serve_round(server, ids, results: dict) -> None:
     """``generate()`` one request per id from concurrent threads."""
 
@@ -201,21 +210,70 @@ def bbox_pixel_tests(fv, h: int, w: int) -> int:
     return int(n[raster._front_facing(fv)].sum().item())
 
 
-def check_kernels(calls):
-    """Kernel vs plain on the recorded inputs; returns the JSON records."""
+def _agree(got, want, what: str) -> float:
+    """max |got - want|; raises past one bf16 rounding step (2^-7 relative)."""
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= want.float().abs() * 2.0**-7 + 1e-6).all()), f"{what} disagrees at {tuple(got.shape)}"
+    return d.max().item()
+
+
+KERNELS = {
+    "raster": dict(name="raster", route="cuda", source="gif_tpu_torch/csrc/raster.cu",
+                   replaces="gif_tpu/render/raster_pallas.py:271"),
+    "sampler": dict(name="sampler", route="cuda", source="gif_tpu_torch/csrc/sampler.cu",
+                    replaces="gif_tpu/render/sampler_pallas.py:43"),
+    "flr": dict(name="fused_bias_lrelu", route="triton", source="gif_tpu_torch/ops/activations.py",
+                replaces="gif_tpu/ops/activations.py:41"),
+    "flr_bwd": dict(name="fused_bias_lrelu_bwd", route="triton", source="gif_tpu_torch/ops/activations.py",
+                    replaces="gif_tpu/ops/activations.py:48"),
+    "blur": dict(name="fir_blur", route="cuda", source="gif_tpu_torch/csrc/blur.cu",
+                 replaces="gif_tpu/ops/blur_pallas.py:51"),
+    "blur_vjp": dict(name="fir_blur_vjp", route="cuda", source="gif_tpu_torch/csrc/blur.cu",
+                     replaces="gif_tpu/ops/blur_pallas.py:241"),
+}
+TOLERANCE = {
+    "raster": "tol: tri_id mismatch fraction 1e-4, depth / bary / attributes 1e-4 on agreeing pixels",
+    "sampler": "tol 1e-6",
+    "flr": "tol 1 bf16 step: 2^-7 relative",
+    "flr_bwd": "tol 1 bf16 step: 2^-7 relative",
+    "blur": "tol 1 bf16 step: 2^-7 relative",
+    "blur_vjp": "tol 1 bf16 step: 2^-7 relative",
+}
+
+
+def _dtype(t) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def _signature(kind: str, args) -> tuple:
+    """What a launch's cost depends on besides its data: shapes, dtype,
+    taps, pads."""
+    if kind == "raster":
+        return (tuple(args[0].shape),) + tuple(args[2:6])
+    if kind == "sampler":
+        return tuple(args[0].shape), tuple(args[1].shape)
+    if kind in ("flr", "flr_bwd"):
+        return tuple(args[0].shape), _dtype(args[0])
+    return tuple(args[0].shape), _dtype(args[0]), tuple(args[1]), tuple(args[2])
+
+
+def _label(kind: str, sig: tuple) -> tuple:
+    """A signature without its taps, for the logs."""
+    if kind in ("blur", "blur_vjp"):
+        return sig[0], sig[1], sig[3]
+    if kind == "raster":
+        return sig[0], f"cap {sig[4]}"
+    return sig[:2]
+
+
+def check_raster(args, out) -> dict:
     import torch
-    import torch.nn.functional as F
 
-    from gif_tpu_torch.ops import activations, blur_cuda
-    from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, shading
+    from gif_tpu_torch.render import raster
 
-    records = []
-
-    # --- kernel 1: rasterizer (its wrapper: torch binning + setup + kernel) ---
-    (fv, attrs, h, w, tile, cap), = calls["raster"]
-    got, got_img = raster_cuda.rasterize_cuda(fv, attrs, h, w, tile, cap)
+    fv, attrs, h, w, tile, cap = args
+    got, got_img = out
     want, want_img = raster.rasterize_plain(fv, attrs, h=h, w=w, tile=tile, max_tris_per_tile=cap)
-    torch.cuda.synchronize()
     mismatch = (got.tri_id != want.tri_id).float().mean().item()
     same = got.tri_id == want.tri_id
     err = max(
@@ -224,111 +282,224 @@ def check_kernels(calls):
         (got_img - want_img)[same].abs().max().item(),
     )
     overflow_equal = bool(torch.equal(got.tile_overflow, want.tile_overflow))
-    verdict = (f"tri_id mismatch fraction {mismatch:.3g} (tol 1e-4), max_abs_err {err:.3g} on "
-               f"agreeing pixels (tol 1e-4), overflow equal {overflow_equal}")
-    assert mismatch <= 1e-4 and err <= 1e-4 and overflow_equal, f"raster kernel disagrees: {verdict}"
-    pairs = bbox_pixel_tests(fv, h, w)
-    out_bytes = fv.shape[0] * h * w * (4 + 4 + 12 + 4 * attrs.shape[-1]) + got.tile_overflow.numel()
-    t_bytes = (nbytes(fv, attrs) + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = pairs * RASTER_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    assert mismatch <= 1e-4 and err <= 1e-4 and overflow_equal, (
+        f"raster kernel disagrees at fv {tuple(fv.shape)}: tri_id mismatch {mismatch:.3g}, max_abs_err "
+        f"{err:.3g}, overflow equal {overflow_equal}")
+    return {"max_abs_err": err, "tri_id_mismatch": mismatch}
+
+
+def check_sampler(args, out) -> dict:
+    from gif_tpu_torch.render import shading
+
+    err = (out - shading.grid_sample_bilinear(*args)).abs().max().item()
+    assert err <= 1e-6, f"sampler kernel disagrees at {tuple(args[1].shape)}: max_abs_err {err:.3g} (tol 1e-6)"
+    return {"max_abs_err": err}
+
+
+def check_flr(args, out) -> dict:
+    from gif_tpu_torch.ops import activations
+
+    return {"max_abs_err": _agree(out, activations.fused_leaky_relu_plain(*args), "flr kernel")}
+
+
+def check_flr_bwd(args, out) -> dict:
+    from gif_tpu_torch.ops import activations
+
+    return {"max_abs_err": _agree(out, activations.fused_leaky_relu_backward_plain(*args), "flr bwd kernel")}
+
+
+def check_blur(args, out) -> dict:
+    from gif_tpu_torch.ops import blur_cuda
+
+    x, taps, pads, _ = args
+    return {"max_abs_err": _agree(out, blur_cuda.blur4_plain(x, taps, pads), "blur kernel")}
+
+
+class LaunchRecorder:
+    """While active, every launch of the six kernels is held to its plain
+    version on the spot, on the inputs the wrapper received (the checks
+    launch nothing), and noted by its signature.  A raster launch opens a
+    new round: each served batch and each train step renders first.
+    ``rounds[i][kind][signature]`` is ``{"n": launches, "args": the first
+    such launch's inputs}``; ``stats[kind]`` holds the largest errors."""
+
+    def __enter__(self):
+        from gif_tpu_torch.ops import activations, blur_cuda
+        from gif_tpu_torch.render import raster_cuda, sampler_cuda
+
+        self.rounds = []
+        self.stats = {k: {} for k in KERNELS}
+        self.saved = []
+
+        def blur_kind(args):
+            return "blur_vjp" if args[3] is blur_cuda.blur4_vjp else "blur"
+
+        for mod, name, kind_of, check in (
+            (raster_cuda, "rasterize_cuda", lambda a: "raster", check_raster),
+            (sampler_cuda, "grid_sample_cuda", lambda a: "sampler", check_sampler),
+            (activations, "fused_leaky_relu_triton", lambda a: "flr", check_flr),
+            (activations, "fused_leaky_relu_backward_triton", lambda a: "flr_bwd", check_flr_bwd),
+            (blur_cuda, "_launch", blur_kind, check_blur),
+        ):
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, self._recording(orig, kind_of, check))
+        return self
+
+    def _recording(self, orig, kind_of, check):
+        def launch(*args):
+            out = orig(*args)
+            kind = kind_of(args)
+            if kind == "raster":
+                self.rounds.append({k: {} for k in KERNELS})
+            for k, v in check(args, out).items():
+                self.stats[kind][k] = max(self.stats[kind].get(k, 0.0), v)
+            rec = self.rounds[-1][kind].setdefault(_signature(kind, args), {"n": 0, "args": args})
+            rec["n"] += 1
+            return out
+
+        return launch
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def time_raster(fv, attrs, h, w, tile, cap):
+    """(times, bytes ms, operations ms, info) of kernel 1 on these inputs:
+    its wrapper (torch binning + setup + kernel) and the kernel alone."""
+    from gif_tpu_torch.render import raster, raster_cuda
+
     t = times(lambda: raster_cuda.rasterize_cuda(fv, attrs, h, w, tile, cap),
               lambda: raster.rasterize_plain(fv, attrs, h=h, w=w, tile=tile, max_tris_per_tile=cap))
-    ids, counts, _ = raster.bin_faces(fv, tile, cap, h, w)
+    ids, counts, overflow = raster.bin_faces(fv, tile, cap, h, w)
     tab = raster.face_table(fv)
-    kernel_only = device_ms(lambda: raster_cuda.launch_kernel(tab, attrs, ids, counts, h, w, tile))
-    log(f"kernel raster: {verdict}; ms {t['ms']:.4f} (raster_kernel alone {kernel_only:.4f}; wall "
-        f"{t['wall_ms']:.4f}) plain_ms {t['plain_ms']:.4f} bound_ms {max(t_bytes, t_ops):.4f} "
-        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}: {pairs} bbox pixel tests) "
-        f"library_ms none; fv {tuple(fv.shape)} attrs {tuple(attrs.shape)} cap {cap} tile {tile}; "
-        f"candidates per tile max {int(counts.max())} mean {counts.float().mean().item():.1f}")
-    records.append(dict(
-        name="raster", route="cuda", source="gif_tpu_torch/csrc/raster.cu",
-        replaces="gif_tpu/render/raster_pallas.py:271", max_abs_err=err,
-        bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops > t_bytes else "bytes",
-        kernel_only_ms=kernel_only, tri_id_mismatch=mismatch, **t,
-    ))
+    t["kernel_only_ms"] = device_ms(lambda: raster_cuda.launch_kernel(tab, attrs, ids, counts, h, w, tile))
+    pairs = bbox_pixel_tests(fv, h, w)
+    out_bytes = fv.shape[0] * h * w * (4 + 4 + 12 + 4 * attrs.shape[-1]) + overflow.numel()
+    info = {"bbox_pixel_tests": pairs, "candidates_per_tile_max": int(counts.max()),
+            "candidates_per_tile_mean": counts.float().mean().item()}
+    return (t, (nbytes(fv, attrs) + out_bytes) / HBM_BYTES_PER_S * 1e3,
+            pairs * RASTER_OPS_PER_PAIR / F32_OPS_PER_S * 1e3, info)
 
-    # --- kernel 2: albedo sampler ---
-    (img, grid), = calls["sampler"]
-    got = sampler_cuda.grid_sample_cuda(img, grid)
-    want = shading.grid_sample_bilinear(img, grid)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 1e-6, f"sampler kernel disagrees: max_abs_err {err:.3g} (tol 1e-6)"
+
+def time_sampler(img, grid):
+    import torch.nn.functional as F
+
+    from gif_tpu_torch.render import sampler_cuda, shading
+
     img_nchw = img.permute(0, 3, 1, 2)
 
     def library():
-        return F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
+        return F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
 
-    lib_err = (library().permute(0, 2, 3, 1) - got).abs().max().item()
-    bound = nbytes(img, grid, got) / HBM_BYTES_PER_S * 1e3
+    got = sampler_cuda.grid_sample_cuda(img, grid)
+    lib_diff = (library().permute(0, 2, 3, 1) - got).abs().max().item()
     t = times(lambda: sampler_cuda.grid_sample_cuda(img, grid),
               lambda: shading.grid_sample_bilinear(img, grid), library)
-    log(f"kernel sampler: max_abs_err {err:.3g} (tol 1e-6); ms {t['ms']:.4f} (wall {t['wall_ms']:.4f}) plain_ms {t['plain_ms']:.4f} "
-        f"library_ms {t['library_ms']:.4f} (F.grid_sample, max diff {lib_err:.3g}) bound_ms "
-        f"{bound:.4f} (bytes); img {tuple(img.shape)} grid {tuple(grid.shape)}")
-    records.append(dict(
-        name="sampler", route="cuda", source="gif_tpu_torch/csrc/sampler.cu",
-        replaces="gif_tpu/render/sampler_pallas.py:43", max_abs_err=err, bound_ms=bound,
-        bound_by="bytes", **t,
-    ))
+    return t, nbytes(img, grid, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
 
-    # --- kernel 3: fused bias + lrelu, summed over its launches of a batch ---
-    tot, err, bound = {}, 0.0, 0.0
-    for x, bias, neg, scale in calls["flr"]:
-        got = activations.fused_leaky_relu_triton(x, bias, neg, scale)
-        want = activations.fused_leaky_relu_plain(x, bias, neg, scale)
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs()
-        # One bf16 rounding step of the output: 2^-7 relative.
-        assert bool((d <= want.float().abs() * 2.0**-7 + 1e-6).all()), \
-            f"flr kernel disagrees at {tuple(x.shape)}"
-        err = max(err, d.max().item())
-        add_times(tot, times(lambda: activations.fused_leaky_relu_triton(x, bias, neg, scale),
-                             lambda: activations.fused_leaky_relu_plain(x, bias, neg, scale)))
-        bound += nbytes(x, bias, got) / HBM_BYTES_PER_S * 1e3
-    shapes = sorted({tuple(c[0].shape) for c in calls["flr"]})
-    log(f"kernel flr: {len(calls['flr'])} launches/batch, max_abs_err {err:.3g} (tol 1 bf16 "
-        f"step: 2^-7 relative), ms {tot['ms']:.4f} (wall {tot['wall_ms']:.4f}) plain_ms "
-        f"{tot['plain_ms']:.4f} bound_ms {bound:.4f} (bytes) library_ms none; dtype "
-        f"{calls['flr'][0][0].dtype}; shapes {shapes}")
-    records.append(dict(
-        name="fused_bias_lrelu", route="triton", source="gif_tpu_torch/ops/activations.py",
-        replaces="gif_tpu/ops/activations.py:41", max_abs_err=err, bound_ms=bound,
-        bound_by="bytes", **tot,
-    ))
 
-    # --- kernel 4: FIR blur, summed over its launches of a batch ---
-    tot, err, bound = {}, 0.0, 0.0
-    for x, taps, pads in calls["blur"]:
-        got = blur_cuda.blur4_cuda(x, taps, pads)
-        want = blur_cuda.blur4_plain(x, taps, pads)
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs()
-        assert bool((d <= want.float().abs() * 2.0**-7 + 1e-6).all()), \
-            f"blur kernel disagrees at {tuple(x.shape)}"
-        err = max(err, d.max().item())
-        c = x.shape[1]
-        k2 = torch.tensor(taps, device=x.device, dtype=x.dtype)
-        k2 = (k2[:, None] * k2[None, :]).expand(c, 1, 4, 4).contiguous()
-        assert pads[0] == pads[1] == pads[2] == pads[3]
-        assert F.conv2d(x, k2, padding=pads[0], groups=c).shape == got.shape
-        add_times(tot, times(lambda: blur_cuda.blur4_cuda(x, taps, pads),
-                             lambda: blur_cuda.blur4_plain(x, taps, pads),
-                             lambda: F.conv2d(x, k2, padding=pads[0], groups=c)))
-        bound += nbytes(x, got) / HBM_BYTES_PER_S * 1e3
-    shapes = [tuple(c[0].shape) for c in calls["blur"]]
-    log(f"kernel blur: {len(calls['blur'])} launches/batch, max_abs_err {err:.3g} (tol 1 bf16 "
-        f"step: 2^-7 relative), ms {tot['ms']:.4f} (wall {tot['wall_ms']:.4f}) plain_ms "
-        f"{tot['plain_ms']:.4f} library_ms {tot['library_ms']:.4f} (depthwise F.conv2d) bound_ms "
-        f"{bound:.4f} (bytes); shapes {shapes}")
-    records.append(dict(
-        name="fir_blur", route="cuda", source="gif_tpu_torch/csrc/blur.cu",
-        replaces="gif_tpu/ops/blur_pallas.py:51", max_abs_err=err, bound_ms=bound,
-        bound_by="bytes", **tot,
-    ))
-    return records
+def time_flr(x, bias, neg, scale):
+    from gif_tpu_torch.ops import activations
+
+    t = times(lambda: activations.fused_leaky_relu_triton(x, bias, neg, scale),
+              lambda: activations.fused_leaky_relu_plain(x, bias, neg, scale))
+    return t, (2 * nbytes(x) + nbytes(bias)) / HBM_BYTES_PER_S * 1e3, 0.0, {}
+
+
+def time_flr_bwd(x, bias, g, neg, scale):
+    from gif_tpu_torch.ops import activations
+
+    t = times(lambda: activations.fused_leaky_relu_backward_triton(x, bias, g, neg, scale),
+              lambda: activations.fused_leaky_relu_backward_plain(x, bias, g, neg, scale))
+    # Read x and g, write dx (x's dtype).
+    return t, (2 * nbytes(x) + nbytes(g, bias)) / HBM_BYTES_PER_S * 1e3, 0.0, {}
+
+
+def time_blur(x, taps, pads, _counter):
+    """Kernel 4 forward; the library is a depthwise ``F.conv2d`` with the
+    same (correlation) taps."""
+    import torch
+    import torch.nn.functional as F
+
+    from gif_tpu_torch.ops import blur_cuda
+
+    assert pads[0] == pads[1] == pads[2] == pads[3], pads
+    c = x.shape[1]
+    k1 = torch.tensor(taps, device=x.device, dtype=x.dtype)
+    k2 = (k1[:, None] * k1[None, :]).expand(c, 1, 4, 4).contiguous()
+    got = blur_cuda.blur4_cuda(x, taps, pads)
+    lib_diff = (F.conv2d(x, k2, padding=pads[0], groups=c).float() - got.float()).abs().max().item()
+    t = times(lambda: blur_cuda.blur4_cuda(x, taps, pads),
+              lambda: blur_cuda.blur4_plain(x, taps, pads),
+              lambda: F.conv2d(x, k2, padding=pads[0], groups=c))
+    return t, nbytes(x, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+
+
+def time_blur_vjp(g, taps, pads, _counter):
+    """Kernel 4's VJP launch on gradient ``g``; the library computes the
+    same input gradient as the autograd backward of the depthwise
+    ``F.conv2d`` this launch is the VJP of (taps reversed, pads 3 - p)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gif_tpu_torch.ops import blur_cuda
+
+    nb, c, ho, wo = g.shape
+    fpads = tuple(3 - p for p in pads)
+    assert fpads[0] == fpads[1] == fpads[2] == fpads[3], fpads
+    xin = torch.zeros((nb, c, ho - 2 * fpads[0] + 3, wo - 2 * fpads[0] + 3), dtype=g.dtype,
+                      device=g.device, requires_grad=True)
+    k1 = torch.tensor(taps[::-1], device=g.device, dtype=g.dtype)
+    k2 = (k1[:, None] * k1[None, :]).expand(c, 1, 4, 4).contiguous()
+    y = F.conv2d(xin, k2, padding=fpads[0], groups=c)
+
+    def library():
+        return torch.autograd.grad(y, xin, g, retain_graph=True)[0]
+
+    got = blur_cuda.blur4_cuda(g, taps, pads)
+    lib_diff = (library().float() - got.float()).abs().max().item()
+    t = times(lambda: blur_cuda.blur4_cuda(g, taps, pads),
+              lambda: blur_cuda.blur4_plain(g, taps, pads), library)
+    return t, (nbytes(g) + nbytes(got)) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+
+
+TIMERS = {"raster": time_raster, "sampler": time_sampler, "flr": time_flr,
+          "flr_bwd": time_flr_bwd, "blur": time_blur, "blur_vjp": time_blur_vjp}
+
+
+def time_round(groups: dict, stats: dict, per: str) -> dict:
+    """Every kernel of one recorded round, timed once per distinct
+    signature and scaled by its launch count, with its bound; returns
+    {kind: record fields} and logs one line per kernel."""
+    out = {}
+    for kind, sigs in groups.items():
+        if not sigs:
+            continue
+        tot, t_bytes, t_ops, info = {}, 0.0, 0.0, {}
+        for rec in sigs.values():
+            t, b, o, extra = TIMERS[kind](*rec["args"])
+            n = rec["n"]
+            add_times(tot, {k: None if v is None else n * v for k, v in t.items()})
+            t_bytes, t_ops = t_bytes + n * b, t_ops + n * o
+            for k, v in extra.items():
+                info[k] = max(info.get(k, v), v)
+        n = sum(r["n"] for r in sigs.values())
+        bound_by = "operations" if t_ops > t_bytes else "bytes"
+        out[kind] = dict(max_abs_err=stats[kind]["max_abs_err"], bound_ms=max(t_bytes, t_ops),
+                         bound_by=bound_by, per=per, launches_per=n, **tot,
+                         **{k: v for k, v in stats[kind].items() if k != "max_abs_err"}, **info)
+        extras = {k: v for k, v in out[kind].items() if k not in (
+            "max_abs_err", "bound_ms", "bound_by", "per", "launches_per", "ms", "plain_ms",
+            "library_ms", "wall_ms")}
+        lib = "none" if tot["library_ms"] is None else f"{tot['library_ms']:.4f}"
+        log(f"kernel {KERNELS[kind]['name']} ({per}): {n} launches, {len(sigs)} distinct inputs; "
+            f"max_abs_err {stats[kind]['max_abs_err']:.3g} ({TOLERANCE[kind]}); ms {tot['ms']:.4f} (wall "
+            f"{tot['wall_ms']:.4f}) plain_ms {tot['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{max(t_bytes, t_ops):.4f} ({bound_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f}); "
+            f"{extras}; inputs {sorted((_label(kind, sig), r['n']) for sig, r in sigs.items())}")
+    return out
 
 
 def check_against_cpu_plain():
@@ -381,12 +552,281 @@ def profile_batch(sampler):
         t0 = time.perf_counter()
         sampler.sample(fl, idx)
         wall = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((ms, n, k) for k, (ms, n) in _device_rows(prof).items()), reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"phase profile: batch of 8 {wall:.2f} ms host clock under the profiler, device time "
-        f"{busy:.2f} ms ({100 * busy / wall:.1f}% busy), {sum(r[1] for r in rows)} device ops")
-    for ms, n, name in rows[:20]:
-        log(f"  {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    log_profile(prof, wall, "phase profile: batch of 8")
+
+
+TRAIN_BATCH = 16
+
+
+def train_batch(cfg, n: int, device, seed: int = 0) -> dict:
+    """bench.py's seeded batch (bench.py:50-62): shape x0.1, pose x0.05,
+    camera scale 8, SH band 3.0, uniform real images; identities drawn
+    over the whole vocabulary."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = cfg.max_size
+    flame = np.zeros((n, 236), np.float32)
+    flame[:, :100] = rng.standard_normal((n, 100)).astype(np.float32) * 0.1
+    flame[:, 150:156] = rng.standard_normal((n, 6)).astype(np.float32) * 0.05
+    flame[:, 156] = 8.0
+    flame[:, 209:212] = 3.0
+    batch = {
+        "real_image": rng.uniform(-1, 1, (n, s, s, 3)).astype(np.float32),
+        "flame": flame,
+        "indices": rng.integers(0, cfg.embedding_vocab_size, n),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _param_snapshot(module):
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def _moved(before, module) -> float:
+    return sum((a - p.detach()).abs().mean().item() for a, p in zip(before, module.parameters()))
+
+
+def run_train_steps(step, state, batch, counters, n_steps: int = 3):
+    """The counted main path: every counter set to 0 just before, read just
+    after.  Returns (per-step [(step index, seconds, metrics, launches)],
+    launches, peak bytes, moved)."""
+    import torch
+
+    before = {k: _param_snapshot(getattr(state, k)) for k in ("generator", "discriminator", "g_ema")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = []
+    for _ in range(n_steps):
+        i = state.step
+        prev = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append((i, dt, {k: v.item() for k, v in m.items()},
+                      {k: fn.launches - prev[k] for k, fn in counters.items()}))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: _moved(v, getattr(state, k)) for k, v in before.items()}
+    return steps, launches, peak, moved
+
+
+def profile_train_step(step, state, batch, r1: bool):
+    """One more train step (with or without R1, by setting ``state.step``)
+    under torch.profiler: device busy share and the kernels that take the
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state.step = 15 if r1 else 16  # r1_interval 16: (15 + 1) % 16 == 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    assert (m["r1"].item() > 0) == r1
+    log_profile(prof, wall, f"phase train profile: one step (batch {TRAIN_BATCH}, {'with' if r1 else 'no'} R1)")
+
+
+def event_ms(fn, iters: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``iters`` synchronized calls
+    after one warm-up call."""
+    import torch
+
+    out = []
+    for _ in range(iters + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out[1:]))
+
+
+def time_r1_parts(state, batch, cfg, res) -> None:
+    """Where an R1 step's extra time goes, at the train shapes: CUDA-event
+    times of D's loss forward + parameter backward (every step runs it),
+    of R1's own forward (D(real) and its input gradient, graph kept) and
+    of R1's parameter backward (the double backward) alone; then a profile
+    of the last, naming the ops that launched its slowest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gif_tpu_torch.device import second_order_safe
+    from gif_tpu_torch.train import losses
+    from gif_tpu_torch.train.step import render_condition_maps
+
+    disc = state.discriminator
+    params = list(disc.parameters())
+    real = batch["real_image"]
+    with torch.no_grad():
+        cond = render_condition_maps(res, batch["flame"], cfg, res.n_faces)
+        fake = state.generator(cond, input_indices=batch["indices"], step=cfg.max_step)
+
+    def d_loss_grads():
+        torch.autograd.grad(losses.d_ns_loss(disc(real, cond), disc(fake, cond)), params)
+
+    def r1_forward():
+        return losses.r1_penalty(disc, real, cond, cfg.r1_weight)
+
+    t_d, t_fwd = event_ms(d_loss_grads), event_ms(r1_forward)
+    r1 = r1_forward()
+
+    def r1_backward():
+        with second_order_safe(real.device):
+            torch.autograd.grad(r1, params, retain_graph=True, materialize_grads=True)
+
+    t_bwd = event_ms(r1_backward)
+    log(f"phase r1 parts (full-width D, batch {TRAIN_BATCH}, CUDA events, median of 3): D loss "
+        f"forward + parameter backward {t_d:.2f} ms; R1 forward (D(real) + input gradient, graph "
+        f"kept) {t_fwd:.2f} ms; R1 parameter backward (double backward) {t_bwd:.2f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        r1_backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log_profile(prof, wall, "phase r1 profile: R1's parameter backward alone")
+    by_op = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", []):
+            key = (e.name, str(e.input_shapes)[:150], k.name[:60])
+            ms, n = by_op.get(key, (0.0, 0))
+            by_op[key] = (ms + k.duration / 1e3, n + 1)
+    for (op, shapes, kernel), (ms, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {ms:8.3f} ms  x{n:<3d} {op} {shapes} -> {kernel}")
+    del r1
+
+
+class plain_kernels:
+    """Route the kernel launchers of kernels 3-5 to their plain versions on
+    CUDA tensors (the autograd Functions around them stay)."""
+
+    def __enter__(self):
+        from gif_tpu_torch.ops import activations, blur_cuda
+
+        self.saved = [(activations, "fused_leaky_relu_triton"),
+                      (activations, "fused_leaky_relu_backward_triton"),
+                      (blur_cuda, "blur4_cuda")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        activations.fused_leaky_relu_triton = activations.fused_leaky_relu_plain
+        activations.fused_leaky_relu_backward_triton = activations.fused_leaky_relu_backward_plain
+        blur_cuda.blur4_cuda = blur_cuda.blur4_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def r1_param_grads(disc, real, cond):
+    import torch
+
+    from gif_tpu_torch.device import second_order_safe
+    from gif_tpu_torch.train import losses
+
+    r1 = losses.r1_penalty(disc, real, cond, 5.0)
+    with second_order_safe(real.device):
+        return torch.autograd.grad(r1, list(disc.parameters()), materialize_grads=True)
+
+
+def check_r1_narrow(counters):
+    """R1's parameter gradient (grad-of-grad through kernels 3-5) on a
+    narrow discriminator — max_channels 64, 64 px, batch 4, f32 — through
+    the kernels and through the plain versions, both on the card; then the
+    bf16 policy's against f32."""
+    import torch
+
+    from gif_tpu_torch.models.discriminator import Discriminator
+
+    rng = np.random.default_rng(3)
+    real = torch.as_tensor(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32), device="cuda")
+    cond = torch.as_tensor(rng.uniform(-1, 1, (4, 64, 64, 6)).astype(np.float32), device="cuda")
+    d32 = Discriminator(size=64, max_channels=64, generator=torch.Generator().manual_seed(3)).cuda()
+    prev = {k: fn.launches for k, fn in counters.items()}
+    got = r1_param_grads(d32, real, cond)
+    torch.cuda.synchronize()
+    used = {k: fn.launches - prev[k] for k, fn in counters.items()}
+    assert all(used[k] > 0 for k in ("fused_bias_lrelu", "fused_bias_lrelu_bwd", "fir_blur", "fir_blur_vjp")), used
+    with plain_kernels():
+        want = r1_param_grads(d32, real, cond)
+    err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item() for a, b in zip(got, want))
+    log(f"phase r1 check (D max_channels 64, 64 px, batch 4, f32): R1 parameter gradient through the "
+        f"kernels vs the plain versions, max |diff| / max |plain| per tensor {err:.3g} (tol 1e-4: "
+        f"cuDNN's weight-gradient algorithms may sum in another order); launches {used}")
+    assert err <= 1e-4, err
+    d16 = Discriminator(size=64, max_channels=64, dtype=torch.bfloat16).cuda()
+    d16.load_state_dict(d32.state_dict())
+    g16 = r1_param_grads(d16, real, cond)
+    # The act_bias gradients of R1 are ~1e-7, mostly bf16 rounding: the
+    # weights' directions and the whole gradient's error are what can show
+    # a fault (a wrong double backward reads cosine ~0.1).
+    cos = min(
+        (torch.dot(a.flatten().double(), b.flatten().double()) / a.double().norm() / b.double().norm()).item()
+        for a, b in zip(g16, want) if b.ndim >= 2
+    )
+    fa, fb = (torch.cat([t.flatten().double() for t in g]) for g in (g16, want))
+    rel = ((fa - fb).norm() / fb.norm()).item()
+    log(f"  bf16 policy vs f32: min cosine of the weights' R1 gradients {cos:.4f} (tol >= 0.98), whole "
+        f"R1 gradient relative L2 error {rel:.4f} (tol 0.1)")
+    assert cos >= 0.98 and rel <= 0.1, (cos, rel)
+
+
+def check_train_against_cpu_plain():
+    """Tiny config: one train step (R1 on) on the card against the CPU plain
+    path, from one seeded state; gradients from the same conditions."""
+    import torch
+
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.train.config import TINY_OVERRIDES, get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import (
+        d_loss_and_grads,
+        g_adv_and_grads,
+        make_train_step,
+        render_condition_maps,
+    )
+
+    cfg = get_config(8, **{**TINY_OVERRIDES, "embedding_vocab_size": 16, "batch_size": 4, "r1_interval": 2})
+    res = synthetic_flame_resources(seed=1, n_vertices=503)
+    devs = ("cuda", "cpu")
+    states = {d: create_train_state(cfg, seed=0, device=d) for d in devs}
+    for a, b in zip(states["cuda"].generator.state_dict().values(), states["cpu"].generator.state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+    batches = {d: train_batch(cfg, 4, d, seed=1) for d in devs}
+    with torch.no_grad():
+        conds = {d: render_condition_maps(res, batches[d]["flame"], cfg, res.n_faces) for d in devs}
+    diff = (conds["cuda"].cpu() - conds["cpu"]).abs()
+    step8 = 2.0 / 255.0
+    flips = (diff > step8 * 0.5).float().mean().item()
+    assert diff.max().item() <= step8 * 1.001 and flips < 0.005, "render disagrees"
+    grads, mets = {}, {}
+    for d in devs:
+        st, b = states[d], batches[d]
+        cond = conds["cpu"].to(d)
+        fake_live = st.generator(cond, input_indices=b["indices"], step=cfg.max_step)
+        _, _, dg = d_loss_and_grads(st.discriminator, b["real_image"], cond, fake_live.detach(), cfg, True)
+        _, gg = g_adv_and_grads(st.generator, st.discriminator, fake_live, cond)
+        grads[d] = [t.cpu() for t in (*dg, *gg)]
+        st.step = 1  # (1 + 1) % 2 == 0: R1 fires
+        _, m = make_train_step(cfg, res, device=d, max_tris_per_tile=res.n_faces)(st, b)
+        mets[d] = {k: v.item() for k, v in m.items()}
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(grads["cuda"], grads["cpu"]))
+    m_err = max(abs(mets["cuda"][k] - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-12)
+                for k in ("d_loss", "g_loss", "r1", "g_total"))
+    log(f"cuda vs cpu plain (tiny train step, 503-vertex mesh, 32 px, batch 4, R1 on): cond one-step "
+        f"flips {flips:.4f} (tol 0.005); D and G gradients from the same conditions, max |diff| / "
+        f"max |cpu| per tensor {g_err:.3g} (tol 1e-3); step metrics max relative diff {m_err:.3g} "
+        f"(tol 1e-2, conditions rendered on each device); cuda {mets['cuda']} cpu {mets['cpu']}")
+    assert g_err <= 1e-3 and m_err <= 1e-2 and mets["cuda"]["r1"] > 0
 
 
 def main() -> int:
@@ -436,20 +876,24 @@ def main() -> int:
         "raster": raster_cuda.rasterize_with_attrs,
         "sampler": sampler_cuda.grid_sample,
         "fused_bias_lrelu": activations.fused_leaky_relu,
+        "fused_bias_lrelu_bwd": activations.fused_leaky_relu_backward,
         "fir_blur": blur_cuda.blur4,
+        "fir_blur_vjp": blur_cuda.blur4_vjp,
     }
+    serve_kernels = [KERNELS[k]["name"] for k in ("raster", "sampler", "flr", "blur")]
     try:
         t0 = time.perf_counter()
-        calls = warm_up_and_capture(server, 8)
-        log(f"phase warm-up batch (Triton JIT and first-call setup included): "
-            f"{time.perf_counter() - t0:.2f} s; kernel entries per batch: "
-            + ", ".join(f"{k} {len(v)}" for k, v in calls.items()))
+        with LaunchRecorder() as served:
+            serve_round(server, range(1000, 1008), {})
+        log(f"phase warm-up batch (Triton JIT, first-call setup and the on-the-spot kernel checks "
+            f"included): {time.perf_counter() - t0:.2f} s; kernel launches in the first batch: "
+            + ", ".join(f"{k} {sum(r['n'] for r in v.values())}" for k, v in served.rounds[0].items()))
 
-        # --- phase 3: kernels vs plain versions, timings ---
+        # --- phase 3: kernel timings at the served shapes ---
         t0 = time.perf_counter()
-        records = check_kernels(calls)
-        del calls
-        log(f"phase kernel checks: {time.perf_counter() - t0:.2f} s; card now: "
+        serve_parts = time_round(served.rounds[0], served.stats, "served batch of 8")
+        del served
+        log(f"phase kernel timings: {time.perf_counter() - t0:.2f} s; card now: "
             + nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
         # --- phase 4: CUDA path vs CPU plain path on a small input ---
@@ -484,21 +928,93 @@ def main() -> int:
         assert int(img.max()) > int(img.min()), f"request {i}: constant image"
     overflow = server.sampler.render_overflows - overflows_before
     assert overflow == 0, f"render overflow in {overflow} samples"
-    assert all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}"
+    assert all(launches[k] > 0 for k in serve_kernels), f"a kernel never launched: {launches}"
     full = [t for t, s in zip(secs, sizes) if s == 8]
     log(f"serving latency per batch of 8 (host clock, render + G + readback): median "
         f"{1e3 * float(np.median(full)):.2f} ms, min {1e3 * min(full):.2f} ms, max "
         f"{1e3 * max(full):.2f} ms over {len(full)} batches; {8 / float(np.median(full)):.1f} "
         f"images/s at the median; render overflow 0; on {smi}")
+    serve_launches = launches
+    del server, results
 
+    # --- phase 7: the full-width train step, one recorded warm-up (R1) step ---
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(8, batch_size=TRAIN_BATCH)
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces)
+    batch = train_batch(cfg, TRAIN_BATCH, "cuda")
+    log(f"phase train setup: run_id 8, {cfg.max_size} px, max_channels {cfg.max_channels}, vocab "
+        f"{cfg.embedding_vocab_size}, {cfg.compute_dtype}, batch {TRAIN_BATCH}, r1_interval "
+        f"{cfg.r1_interval}, n_critic {cfg.n_critic}, G {sum(p.numel() for p in state.generator.parameters())} "
+        f"/ D {sum(p.numel() for p in state.discriminator.parameters())} parameters: "
+        f"{time.perf_counter() - t0:.2f} s")
+    # Warm up on an R1 step, so every kernel specialization is built before
+    # anything is timed; the counted steps then start from step 13.
+    state.step = cfg.r1_interval - 1
+    t0 = time.perf_counter()
+    with LaunchRecorder() as trained:
+        state, m0 = step(state, batch)
+        m0 = {k: v.item() for k, v in m0.items()}
+    log(f"phase train warm-up (R1) step incl. Triton JIT and the on-the-spot checks of every kernel "
+        f"launch: {time.perf_counter() - t0:.2f} s; metrics {m0}")
+    assert m0["r1"] > 0 and len(trained.rounds) == 1
+    assert all(trained.rounds[0][k] for k in KERNELS), {k: len(v) for k, v in trained.rounds[0].items()}
+    t0 = time.perf_counter()
+    train_parts = time_round(trained.rounds[0], trained.stats, f"R1 train step, batch {TRAIN_BATCH}")
+    del trained
+    log(f"phase train kernel timings: {time.perf_counter() - t0:.2f} s; card now: "
+        + nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
+
+    # --- phase 8: three counted train steps (13, 14, 15: R1 on the last) ---
+    state.step = 13
+    steps, launches, peak, moved = run_train_steps(step, state, batch, counters)
+    for i, dt, m, n in steps:
+        log(f"  train step {i}: {1e3 * dt:.2f} ms host clock (synchronized), metrics {m}, launches {n}")
+    r1_steps = [(i, dt) for i, dt, m, _ in steps if (i + 1) % cfg.r1_interval == 0]
+    plain_steps = [dt for i, dt, m, _ in steps if (i + 1) % cfg.r1_interval != 0]
+    assert len(r1_steps) == 1, r1_steps
+    for i, dt, m, _ in steps:
+        assert all(np.isfinite(v) for v in m.values()), (i, m)
+        assert (m["r1"] > 0) == ((i + 1) % cfg.r1_interval == 0), (i, m)
+        assert m["render_overflow"] == 0.0, (i, m)
+    assert all(moved[k] > 0 for k in moved) and moved["g_ema"] < moved["generator"], moved
+    assert all(n > 0 for n in launches.values()), f"a kernel never launched in the train steps: {launches}"
+    t_plain = float(np.median(plain_steps))
+    t_r1 = r1_steps[0][1]
+    log(f"phase train: {len(steps)} counted steps at batch {TRAIN_BATCH}: without R1 median "
+        f"{1e3 * t_plain:.2f} ms ({TRAIN_BATCH / t_plain:.1f} images/s), with R1 {1e3 * t_r1:.2f} ms "
+        f"({TRAIN_BATCH / t_r1:.1f} images/s); over the r1_interval {cfg.r1_interval} schedule "
+        f"{TRAIN_BATCH * cfg.r1_interval / ((cfg.r1_interval - 1) * t_plain + t_r1):.1f} images/s; "
+        f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); parameter movement "
+        f"(sum of mean |delta|) {moved}; render overflow 0; launches {launches}; on {smi}")
+    profile_train_step(step, state, batch, r1=False)
+    profile_train_step(step, state, batch, r1=True)
+    time_r1_parts(state, batch, cfg, res)
+    del state, step, batch
+
+    # --- phase 9: R1's grad-of-grad through the kernels vs the plain versions ---
+    check_r1_narrow(counters)
+
+    # --- phase 10: a tiny train step on the card vs the CPU plain path ---
+    check_train_against_cpu_plain()
+
+    # One record per kernel: launches from the counted train steps, the
+    # other numbers at the train shapes (one R1 step's launches); the
+    # forward kernels carry their served-path numbers under "serve", and
+    # max_abs_err is the larger of the two paths'.
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    for r in records:
-        r["launches"] = launches[r["name"]]
-    print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}}
-        for r in records
-    ]}))
+    records = []
+    for kind, meta in KERNELS.items():
+        r = {**meta, "launches": launches[meta["name"]], **train_parts[kind]}
+        if kind in serve_parts:
+            r["serve"] = {"launches": serve_launches[meta["name"]], **serve_parts[kind]}
+            r["max_abs_err"] = max(r["max_abs_err"], serve_parts[kind]["max_abs_err"])
+        records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,6 +18,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def second_order_safe(device: torch.device):
+    """Context for a backward pass that differentiates convolutions twice
+    (R1's grad-of-grad).  On the CPU it turns oneDNN off: its bf16 conv
+    double backward is wrong for stride-1 convs whose output is the size
+    of their input (the 3x3 pad-1 convs of D; ~50% error in the weight
+    gradient of R1, seen with PyTorch 2.13's CPU build), while PyTorch's
+    native CPU convolution is right.  Elsewhere it changes nothing."""
+    if device.type == "cpu":
+        return torch.backends.mkldnn.flags(enabled=False)
+    return contextlib.nullcontext()
 
 
 def set_tf32_policy() -> None:

@@ -1,1 +1,2 @@
-"""The conditional StyleGAN2 generator (port of ``gif_tpu.models``)."""
+"""The conditional StyleGAN2 generator and discriminator (port of
+``gif_tpu.models``)."""

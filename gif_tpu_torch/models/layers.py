@@ -1,7 +1,8 @@
 """``nn.Module`` wrappers around the functional ops, NCHW.
 
-Port of :mod:`gif_tpu.models.layers` (``EqualLinear``, ``ModulatedConv2d``,
-``ConditionInjection``, ``StyledConv``, ``ToRGB``, ``MappingNetwork``).
+Port of :mod:`gif_tpu.models.layers` (``EqualLinear``, ``EqualConv2d``,
+``ModulatedConv2d``, ``ConditionInjection``, ``StyledConv``, ``ToRGB``,
+``ConvLayer``, ``ResBlock``, ``MappingNetwork``).
 Parameter names follow the flax tree (``weight``/``bias``, ``modulation``,
 ``noise.conv0``..., ``act_bias``, ``dense{i}``) so
 :mod:`gif_tpu_torch.tools.convert_params` maps it one to one; conv weights
@@ -10,6 +11,8 @@ reference's distributions.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -57,6 +60,21 @@ class EqualLinear(nn.Module):
             activation=self.activation,
             apply_sqrt2=self.apply_sqrt2,
         )
+
+
+class EqualConv2d(nn.Module):
+    """Conv with runtime He scaling (weight ~ N(0, 1), OIHW)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, bias=True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = _normal((out_ch, in_ch, kernel_size, kernel_size), 1.0, generator)
+        self.bias = _const((out_ch,), 0.0) if bias else None
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x):
+        return ops.equal_conv2d(x, self.weight, self.bias, stride=self.stride, padding=self.padding)
 
 
 class ModulatedConv2d(nn.Module):
@@ -189,6 +207,58 @@ class ToRGB(nn.Module):
         if skip is not None:
             out = out + ops.upsample_2x(skip)
         return out
+
+
+class ConvLayer(nn.Module):
+    """[down-blur (kernel 4)] + EqualConv2d + fused bias+lrelu (kernels 3 /
+    5), in ``dtype``, clamped to +-256 in low precision.  ``activate``
+    layers carry the bias as ``act_bias``; the others (the ResBlock skip)
+    have none."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, downsample=False, activate=True,
+                 dtype=torch.float32, generator: torch.Generator | None = None):
+        super().__init__()
+        self.downsample = downsample
+        self.kernel_size = kernel_size
+        self.conv = EqualConv2d(
+            in_ch, out_ch, kernel_size,
+            stride=2 if downsample else 1,
+            padding=0 if downsample else kernel_size // 2,
+            bias=False, generator=generator,
+        )
+        self.act_bias = nn.Parameter(torch.zeros(out_ch)) if activate else None
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        if self.downsample:
+            p = (4 - 2) + (self.kernel_size - 1)
+            # The reference's default ``legacy`` resampling: these pads as
+            # they are, on every map size.
+            x = ops.blur(x, pad=((p + 1) // 2, p // 2))
+        x = self.conv(x)
+        if self.act_bias is not None:
+            x = ops.fused_leaky_relu(x, self.act_bias)
+            if x.dtype != torch.float32:
+                x = torch.clamp(x, -256.0, 256.0)
+        return x
+
+
+class ResBlock(nn.Module):
+    """Two ConvLayers (the second downsampling) + a 1x1 downsampling skip,
+    summed and scaled by 1/sqrt(2)."""
+
+    def __init__(self, in_ch, out_ch, dtype=torch.float32, generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator)
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, **kw)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, **kw)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, activate=False, **kw)
+        self.dtype = dtype
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        return ((out + self.skip(x)) * (1.0 / math.sqrt(2.0))).to(self.dtype)
 
 
 class MappingNetwork(nn.Module):

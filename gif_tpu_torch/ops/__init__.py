@@ -1,12 +1,15 @@
-"""The StyleGAN2 op set of the serving path (port of ``gif_tpu.ops``), NCHW.
+"""The StyleGAN2 op set of the generator and the discriminator (port of
+``gif_tpu.ops``), NCHW.
 
-Kernels: ``activations.fused_leaky_relu`` (kernel 3, Triton) and
-``blur_cuda.blur4`` (kernel 4, CUDA C++).
+Kernels: ``activations.fused_leaky_relu`` (kernel 3 forward, kernel 5
+backward, Triton) and ``blur_cuda.blur4`` (kernel 4 and its VJP, CUDA
+C++), each twice differentiable through an autograd Function.
 """
 
 from gif_tpu_torch.ops.activations import fused_leaky_relu
 from gif_tpu_torch.ops.conv import equal_conv2d, modulated_conv2d
 from gif_tpu_torch.ops.linear import equal_linear, pixel_norm
+from gif_tpu_torch.ops.stddev import minibatch_stddev
 from gif_tpu_torch.ops.upfirdn import blur, upfirdn2d, upsample_2x
 
 __all__ = [
@@ -15,6 +18,7 @@ __all__ = [
     "modulated_conv2d",
     "equal_linear",
     "pixel_norm",
+    "minibatch_stddev",
     "blur",
     "upfirdn2d",
     "upsample_2x",

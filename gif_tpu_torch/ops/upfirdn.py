@@ -6,8 +6,9 @@ every ``down``-th sample.  Output size per axis:
 
     out = (in * up + pad0 + pad1 - kh + 1) ceildiv-by-stride down
 
-``blur`` — the up-path blur of the modulated conv — runs on kernel 4
-(:mod:`gif_tpu_torch.ops.blur_cuda`) for 4-tap kernels; ``upsample_2x``
+``blur`` — the up-path blur of the modulated conv and the discriminator's
+down-blurs — runs on kernel 4 (:mod:`gif_tpu_torch.ops.blur_cuda`), its
+VJP included, for 4-tap kernels; ``upsample_2x``
 (the ToRGB skip) was never a TPU kernel and stays a plain depthwise conv.
 """
 
@@ -68,7 +69,7 @@ def upsample_2x(x: torch.Tensor, taps=(1, 3, 3, 1), factor: int = 2) -> torch.Te
 
 def blur(x: torch.Tensor, pad, taps=(1, 3, 3, 1), upsample_factor: int = 1) -> torch.Tensor:
     """FIR blur with explicit pad (reference Blur), on kernel 4: 4 taps,
-    pads in [0, 3] — every blur the serving path runs."""
+    pads in [0, 3] — every blur the generator and the discriminator run."""
     gain = float(upsample_factor**2) if upsample_factor > 1 else 1.0
     pad4 = (pad[0], pad[1], pad[0], pad[1]) if len(pad) == 2 else tuple(pad)
     return blur4(x, taps_1d(tuple(taps), gain), pad4)

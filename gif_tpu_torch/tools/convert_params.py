@@ -1,8 +1,9 @@
-"""Convert the JAX package's generator tree into the port's ``state_dict``.
+"""Convert the JAX package's trees into the port's ``state_dict``s.
 
-Input: the flax ``g_params`` (or ``g_ema_params``) and ``buffers`` nested
-dicts as numpy — the trees a ``gif_tpu`` train state holds and the pickles
-``gif_tpu.tools.convert_checkpoint`` writes.  The module names of
+Input: flax ``g_params`` / ``g_ema_params`` / ``d_params`` and ``buffers``
+nested dicts as numpy — the trees a ``gif_tpu`` train state holds and the
+pickles ``gif_tpu.tools.convert_checkpoint`` writes — or a whole train
+state (:func:`convert_train_state`).  The module names of
 :mod:`gif_tpu_torch.models` follow the flax tree, so the conversion is a
 flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
 
@@ -11,15 +12,17 @@ flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
 - ``const_input`` NHWC -> NCHW;
 - the identity-embedding buffer is copied as it is, never regenerated.
 
+Adam's moments are elementwise, so they take the same changes as the
+parameters they belong to.
+
 Run:
 
-  python -m gif_tpu_torch.tools.convert_params trees.pkl out.pt [--params g_ema_params]
+  python -m gif_tpu_torch.tools.convert_params trees.pkl out.pt [--params g_ema_params|g_params|d_params]
 """
 
 from __future__ import annotations
 
 import argparse
-
 import numpy as np
 import torch
 
@@ -33,10 +36,15 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, np.asarray(v)
 
 
-def convert_generator_params(g_params: dict, buffers: dict) -> dict:
-    """flax generator params + buffers -> ``StyledGenerator`` state_dict."""
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def convert_params(params: dict) -> dict:
+    """A flax parameter tree (G or D, or an elementwise tree shaped like
+    one) -> the port's parameter names and layouts."""
     sd = {}
-    for name, arr in _flatten(g_params):
+    for name, arr in _flatten(params):
         if name.endswith(".kernel"):
             name = name[: -len(".kernel")] + ".weight"
             arr = arr.transpose(3, 2, 0, 1)
@@ -44,24 +52,70 @@ def convert_generator_params(g_params: dict, buffers: dict) -> dict:
             arr = arr.transpose(3, 2, 0, 1)
         elif name.endswith("const_input"):
             arr = arr.transpose(0, 3, 1, 2)
-        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
-    for name, arr in _flatten(buffers):
-        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+        sd[name] = _tensor(arr)
     return sd
+
+
+def convert_generator_params(g_params: dict, buffers: dict) -> dict:
+    """flax generator params + buffers -> ``StyledGenerator`` state_dict."""
+    sd = convert_params(g_params)
+    for name, arr in _flatten(buffers):
+        sd[name] = _tensor(arr)
+    return sd
+
+
+def convert_discriminator_params(d_params: dict) -> dict:
+    """flax discriminator params -> ``Discriminator`` state_dict."""
+    return convert_params(d_params)
+
+
+def _convert_adam(opt_state) -> dict:
+    # optax.adam's state: (ScaleByAdamState(count, mu, nu), EmptyState()).
+    count, mu, nu = opt_state[0]
+    return {
+        "step": int(np.asarray(count)),
+        "exp_avg": convert_params(mu),
+        "exp_avg_sq": convert_params(nu),
+    }
+
+
+def convert_train_state(state) -> dict:
+    """A ``gif_tpu`` ``TrainState`` with numpy leaves (``jax.device_get``)
+    -> the dict
+    :func:`gif_tpu_torch.train.state.load_train_state` loads: G, EMA and D
+    state_dicts, both Adam states (``mu`` / ``nu`` / ``count`` ->
+    ``exp_avg`` / ``exp_avg_sq`` / ``step``, by parameter name), ``step``,
+    ``pl_mean`` and ``used_samples``."""
+    buffers = state.buffers
+    return {
+        "generator": convert_generator_params(state.g_params, buffers),
+        "g_ema": convert_generator_params(state.g_ema_params, buffers),
+        "discriminator": convert_discriminator_params(state.d_params),
+        "g_opt": _convert_adam(state.g_opt_state),
+        "d_opt": _convert_adam(state.d_opt_state),
+        "step": int(np.asarray(state.step)),
+        "pl_mean": float(np.asarray(state.pl_mean)),
+        "used_samples": int(np.asarray(state.used_samples)),
+    }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("trees", help="pickle of numpy flax trees (gif_tpu.tools.convert_checkpoint)")
     p.add_argument("out", help="output .pt state_dict")
-    p.add_argument("--params", default="g_ema_params", help="which params tree to convert")
+    p.add_argument("--params", default="g_ema_params", choices=("g_ema_params", "g_params", "d_params"),
+                   help="which params tree to convert")
     a = p.parse_args(argv)
     import pickle
 
     # Only ever unpickle trees this project wrote.
     with open(a.trees, "rb") as f:
         trees = pickle.load(f)
-    torch.save(convert_generator_params(trees[a.params], trees["buffers"]), a.out)
+    if a.params == "d_params":
+        sd = convert_discriminator_params(trees["d_params"])
+    else:
+        sd = convert_generator_params(trees[a.params], trees["buffers"])
+    torch.save(sd, a.out)
     print(a.out)
 
 

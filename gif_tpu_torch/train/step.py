@@ -1,6 +1,29 @@
-"""Condition-map rendering for the generator (port of the render half of
-:mod:`gif_tpu.train.step`: ``render_flame_maps``, ``quantize_condition``
-and ``render_condition_maps``).  The train step itself is not ported yet.
+"""Condition-map rendering and the GAN train step (port of
+:mod:`gif_tpu.train.step`: ``render_flame_maps``, ``quantize_condition``,
+``render_condition_maps`` and ``make_train_step``).
+
+One step, as the reference iteration runs it (``step.py:213-658``):
+
+1. render the condition maps on the device (no gradient reaches the
+   render: the maps are data, floored onto the 8-bit grid);
+2. the generator forward; its graph is kept and reused for G's adversarial
+   gradient (``step.py:318-324``), D sees it detached;
+3. D update: non-saturating softplus loss, plus R1 on the reals — every
+   step through the same D(real) forward when ``r1_interval == 1``, else
+   with its own forward on steps where ``(step + 1) % r1_interval == 0`` —
+   and one Adam step;
+4. G update through the *updated* D (``n_critic``: an integer ``n`` trains
+   G every n-th step, a fraction ``1/k`` k times a step), one Adam step
+   each, and the EMA of G's parameters after each.
+
+Every kernel of the path launches on the card: the rasterizer and the
+albedo sampler in the render, the fused bias+lrelu forward and backward and
+the FIR blur and its VJP in G and D (R1's grad-of-grad included).
+
+The branches of the JAX step that belong to later slices (path-length and
+direct-grad regularizers, embedding reg, shuffled-condition negatives,
+instance noise, the texture-interpolation loss, crop/flip augmentation)
+raise ``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
@@ -8,8 +31,11 @@ from __future__ import annotations
 import torch
 
 from gif_tpu_torch import constants as cnst
+from gif_tpu_torch.device import resolve_device, second_order_safe, set_tf32_policy
 from gif_tpu_torch.render.renderer import RenderedMaps, render_tex_and_normal
+from gif_tpu_torch.train import losses as L
 from gif_tpu_torch.train.config import TrainConfig
+from gif_tpu_torch.utils.ema import ema_update
 from gif_tpu_torch.utils.image import resize_bilinear
 
 
@@ -66,3 +92,152 @@ def render_condition_maps(
     if return_overflow:
         return cond, maps.overflow
     return cond
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
+    needs a branch of the JAX step this port does not have yet."""
+    unported = [
+        (cfg.gen_reg_type.lower() != "none", f"gen_reg_type={cfg.gen_reg_type!r}"),
+        (cfg.embedding_reg_weight > 0, f"embedding_reg_weight={cfg.embedding_reg_weight}"),
+        (cfg.shfld_cond_as_neg_smpl, "shfld_cond_as_neg_smpl=True"),
+        (cfg.d_input_noise_std > 0, f"d_input_noise_std={cfg.d_input_noise_std}"),
+        (cfg.apply_texture_space_interpolation_loss, "apply_texture_space_interpolation_loss=True"),
+    ]
+    for bad, flag in unported:
+        if bad:
+            raise NotImplementedError(f"{flag}: this branch of the train step is not ported yet")
+
+
+def g_schedule(cfg: TrainConfig) -> tuple[int, int]:
+    """(G trains every ``g_interval``-th step, ``g_iters`` times): n_critic
+    >= 1 trains G every round(n_critic) steps once, a fraction trains it
+    round(1 / n_critic) times every step."""
+    nc = cfg.n_critic
+    if nc >= 1:
+        return int(round(nc)), 1
+    return 1, int(round(1.0 / nc))
+
+
+def d_loss_and_grads(disc, real, cond, fake, cfg: TrainConfig, do_r1: bool):
+    """D's softplus loss on (real, fake) under ``cond``, R1 (every step
+    through the shared D(real) forward when ``r1_interval == 1``, else with
+    its own forward where ``do_r1``), and the gradient of their sum with
+    respect to D's parameters.  Returns (d_loss, r1, grads)."""
+    params = list(disc.parameters())
+    if cfg.r1_interval == 1:
+        real_in = real.detach().requires_grad_(True)
+        real_scores = disc(real_in, cond)
+        d_loss = L.d_ns_loss(real_scores, disc(fake, cond))
+        r1 = L.r1_from_scores(real_scores, real_in, cfg.r1_weight)
+    else:
+        d_loss = L.d_ns_loss(disc(real, cond), disc(fake, cond))
+        if do_r1:
+            r1 = L.r1_penalty(disc, real, cond, cfg.r1_weight)
+        else:
+            r1 = torch.zeros((), device=real.device)
+    with second_order_safe(real.device):
+        grads = torch.autograd.grad(d_loss + r1, params, materialize_grads=True)
+    return d_loss.detach(), r1.detach(), grads
+
+
+def g_adv_and_grads(gen, disc, fake_live, cond):
+    """G's non-saturating loss on ``fake_live`` (a generator output whose
+    graph is live) scored by ``disc``, and its gradient with respect to
+    G's parameters only (nothing accumulates into D).  Returns (g_adv,
+    grads)."""
+    g_adv = L.g_ns_loss(disc(fake_live, cond))
+    grads = torch.autograd.grad(g_adv, list(gen.parameters()), materialize_grads=True)
+    return g_adv.detach(), grads
+
+
+def _adam_step(opt: torch.optim.Optimizer, params, grads) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
+def make_train_step(cfg: TrainConfig, res, device=None, max_tris_per_tile: int | None = None):
+    """Build ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``real_image`` (B, S, S, 3) in [-1, 1], ``flame`` (B,
+    236), ``indices`` (B,) identity indices and, unless
+    ``cfg.render_in_step``, ``cond`` (B, S, S, C) precomputed condition
+    maps.  The step updates ``state`` (a :class:`TrainState` on
+    ``device``) in place and returns it with 0-d tensor metrics
+    ``d_loss``, ``g_loss``, ``r1``, ``g_total`` and ``render_overflow``
+    (the fraction of samples whose render dropped triangles).
+
+    ``device`` is CUDA unless the caller passes another; without a card the
+    default raises.  ``max_tris_per_tile=None`` sizes the raster's tile
+    capacity from the mesh.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_tf32_policy()
+    g_interval, g_iters = g_schedule(cfg)
+    step_idx = cfg.max_step
+
+    def as_tensor(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def train_step(state, batch):
+        for key in ("crop", "flip"):
+            if key in batch:
+                raise NotImplementedError(f"batch key {key!r}: augmented batches are not ported yet")
+        real = as_tensor(batch["real_image"], torch.float32)
+        indices = as_tensor(batch["indices"], torch.long)
+        b = real.shape[0]
+        if cfg.render_in_step:
+            flame = as_tensor(batch["flame"], torch.float32)
+            with torch.no_grad():
+                cond, overflow = render_condition_maps(
+                    res, flame, cfg, max_tris_per_tile, return_overflow=True
+                )
+        else:
+            cond = as_tensor(batch["cond"], torch.float32)
+            overflow = torch.zeros((b,), dtype=torch.bool, device=dev)
+        gen, disc = state.generator, state.discriminator
+
+        def g_forward():
+            return gen(cond, input_indices=indices, step=step_idx)
+
+        # D update.  When G trains every step, this forward is also G's
+        # adversarial forward: its graph is kept for the first G iteration.
+        if g_interval == 1:
+            fake_live = g_forward()
+            fake = fake_live.detach()
+        else:
+            fake_live = None
+            with torch.no_grad():
+                fake = g_forward()
+        do_r1 = (state.step + 1) % cfg.r1_interval == 0
+        d_loss, r1, d_grads = d_loss_and_grads(disc, real, cond, fake, cfg, do_r1)
+        _adam_step(state.d_opt, disc.parameters(), d_grads)
+
+        # G update(s), scored by the updated D.
+        g_adv = torch.zeros((), device=dev)
+        if g_interval == 1 or (state.step + 1) % g_interval == 0:
+            for _ in range(g_iters):
+                live, fake_live = (fake_live if fake_live is not None else g_forward()), None
+                g_adv, g_grads = g_adv_and_grads(gen, disc, live, cond)
+                del live
+                _adam_step(state.g_opt, gen.parameters(), g_grads)
+                ema_update(state.g_ema.parameters(), gen.parameters(), cfg.ema_decay)
+
+        state.step += 1
+        state.used_samples += b
+        metrics = {
+            "d_loss": d_loss,
+            "g_loss": g_adv,
+            "r1": r1,
+            # No regularizer of G is in this slice: the total is the
+            # adversarial term.
+            "g_total": g_adv,
+            "render_overflow": overflow.float().mean(),
+        }
+        return state, metrics
+
+    return train_step

@@ -1,1 +1,1 @@
-"""Image utilities (port of ``gif_tpu.utils``)."""
+"""Image utilities and the parameter EMA (port of ``gif_tpu.utils``)."""

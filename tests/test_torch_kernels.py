@@ -81,6 +81,42 @@ def test_blur_kernel_matches_plain(cuda_device, dtype, pads):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flr_backward_kernel_matches_plain(cuda_device, dtype):
+    x = torch.randn((8, 512, 33, 33), device=cuda_device).to(dtype).requires_grad_(True)
+    b = torch.randn(512, device=cuda_device).requires_grad_(True)
+    g = torch.randn((8, 512, 33, 33), device=cuda_device).to(dtype)
+    g = g.to(memory_format=torch.channels_last).requires_grad_(True)  # as cuDNN may hand it
+    before = activations.fused_leaky_relu_backward.launches
+    dx, db = torch.autograd.grad(activations.fused_leaky_relu(x, b), (x, b), g, create_graph=True)
+    want = activations.fused_leaky_relu_backward_plain(x.detach(), b.detach(), g.detach())
+    torch.cuda.synchronize()
+    assert activations.fused_leaky_relu_backward.launches == before + 1
+    assert dx.dtype == dtype and torch.equal(dx, want)
+    torch.testing.assert_close(db, want.float().sum((0, 2, 3)), rtol=1e-5, atol=1e-3)
+    # Grad-of-grad: kernel 5 again, on the incoming gradient.
+    u = torch.randn_like(dx)
+    (dg,) = torch.autograd.grad((dx * u).sum(), g)
+    torch.cuda.synchronize()
+    assert activations.fused_leaky_relu_backward.launches == before + 2
+    assert torch.equal(dg, activations.fused_leaky_relu_backward_plain(x.detach(), b.detach(), u))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pads", [(2, 2, 2, 2), (1, 1, 1, 1)])
+def test_blur_vjp_kernel_matches_plain(cuda_device, dtype, pads):
+    x = torch.randn((4, 64, 64, 64), device=cuda_device).to(dtype).requires_grad_(True)
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), 1.0)
+    out = blur_cuda.blur4(x, taps, pads)
+    g = torch.randn(out.shape, device=cuda_device).to(dtype).to(memory_format=torch.channels_last)
+    before_f, before_v = blur_cuda.blur4.launches, blur_cuda.blur4_vjp.launches
+    (dx,) = torch.autograd.grad(out, x, g)
+    want = blur_cuda.blur4_plain(g, taps, tuple(3 - p for p in pads))
+    torch.cuda.synchronize()
+    assert (blur_cuda.blur4.launches, blur_cuda.blur4_vjp.launches) == (before_f, before_v + 1)
+    assert dx.shape == x.shape and torch.equal(dx, want)
+
+
 def test_kernel_wrappers_raise_on_unsupported_input(cuda_device):
     with pytest.raises(ValueError):
         blur_cuda.blur4(torch.zeros((1, 1, 8, 8), dtype=torch.float16, device=cuda_device),

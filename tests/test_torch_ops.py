@@ -1,11 +1,14 @@
 """Port parity of the op set (f32, CPU): fused bias+lrelu against the JAX
-op with and without its Pallas kernel (interpret mode), the 4-tap blur
-against ``blur4_pallas`` (interpret mode) and ``upfirdn2d``, the modulated
-conv (plain and upsample), ``upsample_2x``, ``equal_linear``,
-``pixel_norm``, ``equal_conv2d`` and the bilinear resize (the kernels
-themselves: tests/test_torch_kernels.py).  Tolerances are f32
+op with and without its Pallas kernel (interpret mode), its gradient
+against the Pallas VJP (kernel 5) and its grad-of-grad against the XLA
+path's; the 4-tap blur against ``blur4_pallas`` (interpret mode) and
+``upfirdn2d``, its gradient and grad-of-grad against ``jax.grad`` of
+``blur4_pallas``; the modulated conv (plain and upsample), ``upsample_2x``,
+``equal_linear``, ``pixel_norm``, ``equal_conv2d`` and the bilinear resize
+(the kernels themselves: tests/test_torch_kernels.py).  Tolerances are f32
 reassociation bars (rtol 1e-5; 1e-4 where a conv sums in another order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +50,42 @@ def test_fused_leaky_relu_matches_jax(use_pallas):
     np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-6, atol=1e-6)
 
 
+def test_fused_leaky_relu_grad_and_grad_of_grad_match_jax():
+    rng = np.random.default_rng(7)
+    x, g = (rng.standard_normal((2, 8, 5, 6)).astype(np.float32) for _ in range(2))  # NCHW
+    bias = rng.standard_normal(8).astype(np.float32)
+    u = rng.standard_normal((2, 8, 5, 6)).astype(np.float32)
+    v = rng.standard_normal(8).astype(np.float32)
+    xj, gj, uj = (jnp.asarray(nhwc(a)) for a in (x, g, u))
+    bj = jnp.asarray(bias)
+
+    def jax_vjp(gg, use_pallas):
+        _, vjp = jax.vjp(lambda a, b: ja.fused_leaky_relu(a, b, use_pallas=use_pallas), xj, bj)
+        return vjp(gg)
+
+    # First order against the Pallas kernel 5 (interpret mode).
+    want_dx, want_db = jax_vjp(gj, True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    gt = torch.from_numpy(g).requires_grad_(True)
+    before = ta.fused_leaky_relu_backward.launches
+    dx, db = torch.autograd.grad(ta.fused_leaky_relu(xt, bt), (xt, bt), gt, create_graph=True)
+    assert ta.fused_leaky_relu_backward.launches == before  # CPU: the plain version
+    np.testing.assert_allclose(dx.detach().numpy(), nchw(want_dx).numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(db.detach().numpy(), np.asarray(want_db), rtol=1e-5, atol=1e-5)
+    # Second order: d/dg of <dx, u> + <db, v> (the Pallas VJP has no JVP
+    # rule, so against the XLA path's custom VJP); zero in x and bias.
+    def s_jax(gg):
+        jdx, jdb = jax_vjp(gg, False)
+        return jnp.sum(jdx * uj) + jnp.sum(jdb * jnp.asarray(v))
+
+    want_dg = jax.grad(s_jax)(gj)
+    s = (dx * torch.from_numpy(u)).sum() + (db * torch.from_numpy(v)).sum()
+    dg, dx2, db2 = torch.autograd.grad(s, (gt, xt, bt), allow_unused=True, materialize_grads=True)
+    np.testing.assert_allclose(dg.numpy(), nchw(want_dg).numpy(), rtol=1e-5, atol=1e-6)
+    assert not dx2.any() and not db2.any()
+
+
 # The up-path geometry (gain 4, pads 1,1 on an odd map) and other pads.
 BLUR_CASES = [((1, 1, 1, 1), 4.0, 9), ((2, 2, 2, 2), 1.0, 12), ((0, 3, 3, 0), 1.0, 10)]
 
@@ -61,6 +100,57 @@ def test_blur_matches_jax_kernel_and_upfirdn(pads, gain, size):
     np.testing.assert_allclose(got.numpy(), nchw(want_kernel).numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), nchw(want_xla).numpy(), rtol=1e-5, atol=1e-6)
     assert tb.taps_1d(TAPS, gain) == jb.taps_1d(TAPS, gain)
+
+
+# The discriminator's down-blurs (pads 2,2 before a 3x3, 1,1 before the
+# 1x1 skip) and the generator's gain-4 up-blur.
+BLUR_GRAD_CASES = [((2, 2, 2, 2), 1.0), ((1, 1, 1, 1), 1.0), ((1, 1, 1, 1), 4.0)]
+
+
+@pytest.mark.parametrize("pads,gain", BLUR_GRAD_CASES)
+def test_blur_grad_and_grad_of_grad_match_jax_kernel(pads, gain):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((1, 4, 10, 9)).astype(np.float32)  # NCHW
+    w = rng.standard_normal(4).astype(np.float32)
+    ct = rng.standard_normal(tb.blur4(torch.from_numpy(x), tb.taps_1d(TAPS, gain), pads).shape)
+    ct = ct.astype(np.float32)
+    jtaps = jb.taps_1d(TAPS, gain)
+
+    # First order: jax.grad of the Pallas kernel (its VJP runs the kernel).
+    want = jax.grad(lambda v: jnp.sum(jb.blur4_pallas(v, jtaps, pads) * jnp.asarray(nhwc(ct))))(
+        jnp.asarray(nhwc(x))
+    )
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad((tb.blur4(xt, tb.taps_1d(TAPS, gain), pads) * torch.from_numpy(ct)).sum(), xt)
+    np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-5, atol=1e-5)
+
+    # Second order, R1-shaped: d/dw sum((d/dx sum(blur(x * w)^2))^2).
+    def r1_jax(wj):
+        gx = jax.grad(lambda v: jnp.sum(jb.blur4_pallas(v * wj, jtaps, pads) ** 2))(jnp.asarray(nhwc(x)))
+        return jnp.sum(gx**2)
+
+    want_w = jax.grad(r1_jax)(jnp.asarray(w))
+    wt = torch.from_numpy(w).requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = tb.blur4(xt * wt[None, :, None, None], tb.taps_1d(TAPS, gain), pads)
+    (gx,) = torch.autograd.grad(out.square().sum(), xt, create_graph=True)
+    (got_w,) = torch.autograd.grad(gx.square().sum(), wt)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-4, atol=1e-4)
+
+
+def test_minibatch_stddev_matches_jax():
+    from gif_tpu.ops.stddev import minibatch_stddev as j_mbstd
+    from gif_tpu_torch.ops.stddev import minibatch_stddev as t_mbstd
+
+    rng = np.random.default_rng(9)
+    for n, c, f in ((8, 6, 1), (4, 6, 2), (2, 4, 1)):
+        x = rng.standard_normal((n, c, 3, 5)).astype(np.float32)
+        got = t_mbstd(torch.from_numpy(x), group_size=4, num_features=f)
+        want = j_mbstd(jnp.asarray(nhwc(x)), group_size=4, num_features=f)
+        assert got.shape == (n, c + f, 3, 5)
+        np.testing.assert_allclose(got.numpy(), nchw(want).numpy(), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        t_mbstd(torch.zeros((6, 4, 2, 2)), group_size=4)
 
 
 def test_upsample_2x_and_upfirdn_match_jax():

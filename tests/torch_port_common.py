@@ -49,3 +49,23 @@ def jax_generator_params(run_id: int = 8):
     )(jax.random.PRNGKey(0))
     return cfg, variables["params"], variables["buffers"]
 
+
+
+@functools.lru_cache(maxsize=2)
+def jax_discriminator_params(compute_dtype: str = "float32"):
+    """(jax cfg, flax D params) of the tiny discriminator."""
+    import jax
+    import jax.numpy as jnp
+
+    from gif_tpu.train import get_config
+    from gif_tpu.train.state import build_models
+
+    cfg = get_config(8, **tiny_overrides(compute_dtype=compute_dtype))
+    _, disc = build_models(cfg)
+    size = cfg.max_size
+    variables = jax.jit(
+        lambda k: disc.init(
+            k, jnp.zeros((1, size, size, 3)), jnp.zeros((1, size, size, cfg.cond_channels))
+        )
+    )(jax.random.PRNGKey(1))
+    return cfg, variables["params"]
