@@ -37,25 +37,40 @@ Phases (each raises on failure; nothing is caught):
    profile one more step without R1 and one with it; time D's parts of an
    R1 step alone with CUDA events (loss, R1 forward, R1 parameter
    backward) and profile R1's parameter backward;
-9. hold R1's parameter gradient through the kernels to the same gradient
-   through the plain versions on a narrow discriminator (f32), and the
-   bf16 policy's to the f32 one;
-10. hold one tiny train step on the card to the CPU plain path (metrics and
-    the G and D gradients from one state).
+9. build the run_id-0 train state at the same width (the flagship preset:
+   texture-space interpolation loss, fused into one render and one G
+   forward over 2B - 1 = 31 rows) and run one warm-up R1 step in which
+   every launch of all seven kernels — the six above and the bilinear
+   scatter (kernel 6), the texture steal's backward — is held to its plain
+   version on the spot, then time each kernel at those shapes;
+10. reset every launch counter, run 3 counted run_id-0 steps from step 13
+    (R1 on the third), read the counters, check the losses (``interp`` > 0,
+    ``g_total = g_loss + interp``), the render overflow, one render, two
+    sampler launches (albedo and texture steal) and the scatter in every
+    step; print step times, images/s and peak memory; profile one more
+    step without R1; time the interpolation penalty alone (forward, and
+    with its image gradient);
+11. hold R1's parameter gradient through the kernels to the same gradient
+    through the plain versions on a narrow discriminator (f32), and the
+    bf16 policy's to the f32 one;
+12. hold one tiny run_id-8 and one tiny run_id-0 train step on the card to
+    the CPU plain path (metrics and the G and D gradients from one state;
+    the interpolation draws injected).
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 (the kernels, copies and memsets a call runs, summed from torch.profiler),
 so host launch overhead is excluded; ``wall_ms`` is a CUDA-event time per
 call over back-to-back calls, which includes it.  Every number of a kernel
 record is a sum over its launches of one R1 train step (batch 16), each
-distinct input timed once; the forward kernels also carry the same numbers
-for one served batch of 8 under ``serve``.  A profile's busy share is the
-union of its device events' intervals over the host clock.
+distinct input timed once: run_id 8's at the top (the scatter's: run_id
+0's), run_id 0's under ``run_id0``; the forward kernels also carry the same
+numbers for one served batch of 8 under ``serve``.  A profile's busy share
+is the union of its device events' intervals over the host clock.
 
 The last lines are one JSON object with a record per kernel (``launches``:
-the counted train steps'; ``serve.launches``: the counted served
-requests'), the card's name and power limit as nvidia-smi
-reports them, and the result line.
+the counted run_id-8 train steps'; ``serve.launches``: the counted served
+requests'; ``run_id0.launches``: the counted run_id-0 steps'), the card's
+name and power limit as nvidia-smi reports them, and the result line.
 """
 
 from __future__ import annotations
@@ -230,7 +245,10 @@ KERNELS = {
                  replaces="gif_tpu/ops/blur_pallas.py:51"),
     "blur_vjp": dict(name="fir_blur_vjp", route="cuda", source="gif_tpu_torch/csrc/blur.cu",
                      replaces="gif_tpu/ops/blur_pallas.py:241"),
+    "scatter": dict(name="bilinear_scatter", route="cuda", source="gif_tpu_torch/csrc/scatter.cu",
+                    replaces="gif_tpu/render/sampler_pallas.py:129"),
 }
+RUN8_KERNELS = [k for k in KERNELS if k != "scatter"]  # run_id 8 has no interpolation loss
 TOLERANCE = {
     "raster": "tol: tri_id mismatch fraction 1e-4, depth / bary / attributes 1e-4 on agreeing pixels",
     "sampler": "tol 1e-6",
@@ -238,6 +256,7 @@ TOLERANCE = {
     "flr_bwd": "tol 1 bf16 step: 2^-7 relative",
     "blur": "tol 1 bf16 step: 2^-7 relative",
     "blur_vjp": "tol 1 bf16 step: 2^-7 relative",
+    "scatter": "tol max|got - plain| <= 1e-5 max|plain| + 1e-7: atomics add in no fixed order",
 }
 
 
@@ -250,7 +269,7 @@ def _signature(kind: str, args) -> tuple:
     taps, pads."""
     if kind == "raster":
         return (tuple(args[0].shape),) + tuple(args[2:6])
-    if kind == "sampler":
+    if kind in ("sampler", "scatter"):
         return tuple(args[0].shape), tuple(args[1].shape)
     if kind in ("flr", "flr_bwd"):
         return tuple(args[0].shape), _dtype(args[0])
@@ -296,6 +315,15 @@ def check_sampler(args, out) -> dict:
     return {"max_abs_err": err}
 
 
+def check_scatter(args, out) -> dict:
+    from gif_tpu_torch.render import sampling_ops
+
+    want = sampling_ops.scatter_bilinear_plain(*args)
+    err, bar = (out - want).abs().max().item(), 1e-5 * want.abs().max().item() + 1e-7
+    assert err <= bar, f"scatter kernel disagrees at {tuple(args[0].shape)}: max_abs_err {err:.3g} (tol {bar:.3g})"
+    return {"max_abs_err": err}
+
+
 def check_flr(args, out) -> dict:
     from gif_tpu_torch.ops import activations
 
@@ -316,7 +344,7 @@ def check_blur(args, out) -> dict:
 
 
 class LaunchRecorder:
-    """While active, every launch of the six kernels is held to its plain
+    """While active, every launch of the seven kernels is held to its plain
     version on the spot, on the inputs the wrapper received (the checks
     launch nothing), and noted by its signature.  A raster launch opens a
     new round: each served batch and each train step renders first.
@@ -325,7 +353,7 @@ class LaunchRecorder:
 
     def __enter__(self):
         from gif_tpu_torch.ops import activations, blur_cuda
-        from gif_tpu_torch.render import raster_cuda, sampler_cuda
+        from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
 
         self.rounds = []
         self.stats = {k: {} for k in KERNELS}
@@ -340,6 +368,7 @@ class LaunchRecorder:
             (activations, "fused_leaky_relu_triton", lambda a: "flr", check_flr),
             (activations, "fused_leaky_relu_backward_triton", lambda a: "flr_bwd", check_flr_bwd),
             (blur_cuda, "_launch", blur_kind, check_blur),
+            (scatter_cuda, "scatter_bilinear_cuda", lambda a: "scatter", check_scatter),
         ):
             orig = getattr(mod, name)
             self.saved.append((mod, name, orig))
@@ -397,7 +426,10 @@ def time_sampler(img, grid):
     lib_diff = (library().permute(0, 2, 3, 1) - got).abs().max().item()
     t = times(lambda: sampler_cuda.grid_sample_cuda(img, grid),
               lambda: shading.grid_sample_bilinear(img, grid), library)
-    return t, nbytes(img, grid, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+    # Per call site (the albedo lookup, the texture steal), by grid shape.
+    at = "x".join(map(str, grid.shape))
+    return t, nbytes(img, grid, got) / HBM_BYTES_PER_S * 1e3, 0.0, {
+        "library_max_diff": lib_diff, f"ms_at_grid_{at}": t["ms"], f"library_ms_at_grid_{at}": t["library_ms"]}
 
 
 def time_flr(x, bias, neg, scale):
@@ -465,8 +497,31 @@ def time_blur_vjp(g, taps, pads, _counter):
     return t, (nbytes(g) + nbytes(got)) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
 
 
-TIMERS = {"raster": time_raster, "sampler": time_sampler, "flr": time_flr,
-          "flr_bwd": time_flr_bwd, "blur": time_blur, "blur_vjp": time_blur_vjp}
+def time_scatter(g, pts, h, w):
+    """Kernel 6; the library is the image gradient of ``F.grid_sample`` at
+    the same points: one ``aten::grid_sampler_2d_backward`` with only the
+    input mask set, on NCHW inputs prepared outside the timed call."""
+    import torch
+
+    from gif_tpu_torch.render import sampling_ops, scatter_cuda
+
+    b, p, c = g.shape
+    g_nchw = g.permute(0, 2, 1)[..., None].contiguous()  # (B, C, P, 1)
+    img_nchw = torch.zeros((b, c, h, w), device=g.device)
+    grid = pts[:, :, None, :].contiguous()
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, False, [True, False])[0]
+
+    got = scatter_cuda.scatter_bilinear_cuda(g, pts, h, w)
+    lib_diff = (library().permute(0, 2, 3, 1) - got).abs().max().item()
+    t = times(lambda: scatter_cuda.scatter_bilinear_cuda(g, pts, h, w),
+              lambda: sampling_ops.scatter_bilinear_plain(g, pts, h, w), library)
+    return t, nbytes(g, pts, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+
+
+TIMERS = {"raster": time_raster, "sampler": time_sampler, "flr": time_flr, "flr_bwd": time_flr_bwd,
+          "blur": time_blur, "blur_vjp": time_blur_vjp, "scatter": time_scatter}
 
 
 def time_round(groups: dict, stats: dict, per: str) -> dict:
@@ -614,7 +669,7 @@ def run_train_steps(step, state, batch, counters, n_steps: int = 3):
     return steps, launches, peak, moved
 
 
-def profile_train_step(step, state, batch, r1: bool):
+def profile_train_step(step, state, batch, r1: bool, what: str = "one step"):
     """One more train step (with or without R1, by setting ``state.step``)
     under torch.profiler: device busy share and the kernels that take the
     device time."""
@@ -629,7 +684,7 @@ def profile_train_step(step, state, batch, r1: bool):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     assert (m["r1"].item() > 0) == r1
-    log_profile(prof, wall, f"phase train profile: one step (batch {TRAIN_BATCH}, {'with' if r1 else 'no'} R1)")
+    log_profile(prof, wall, f"phase train profile: {what} (batch {TRAIN_BATCH}, {'with' if r1 else 'no'} R1)")
 
 
 def event_ms(fn, iters: int = 3) -> float:
@@ -779,23 +834,30 @@ def check_r1_narrow(counters):
     assert cos >= 0.98 and rel <= 0.1, (cos, rel)
 
 
-def check_train_against_cpu_plain():
+def check_train_against_cpu_plain(run_id: int):
     """Tiny config: one train step (R1 on) on the card against the CPU plain
-    path, from one seeded state; gradients from the same conditions."""
+    path, from one seeded state; gradients from the same conditions.  Under
+    the interpolation loss (run_id 0) both take the same injected draws,
+    and G's gradient adds the penalty of interpolants rendered once on the
+    CPU."""
     import torch
 
     from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.train import losses as L
     from gif_tpu_torch.train.config import TINY_OVERRIDES, get_config
     from gif_tpu_torch.train.state import create_train_state
     from gif_tpu_torch.train.step import (
         d_loss_and_grads,
-        g_adv_and_grads,
+        g_loss_and_grads,
         make_train_step,
         render_condition_maps,
+        render_flame_maps,
     )
 
-    cfg = get_config(8, **{**TINY_OVERRIDES, "embedding_vocab_size": 16, "batch_size": 4, "r1_interval": 2})
+    cfg = get_config(run_id, **{**TINY_OVERRIDES, "embedding_vocab_size": 16, "batch_size": 4, "r1_interval": 2})
     res = synthetic_flame_resources(seed=1, n_vertices=503)
+    interp = cfg.apply_texture_space_interpolation_loss
+    draws = {"interp_t": 0.375, "interp_identity": 5, "interp_pairs": np.array([2, 0, 1])}
     devs = ("cuda", "cpu")
     states = {d: create_train_state(cfg, seed=0, device=d) for d in devs}
     for a, b in zip(states["cuda"].generator.state_dict().values(), states["cpu"].generator.state_dict().values()):
@@ -803,6 +865,12 @@ def check_train_against_cpu_plain():
     batches = {d: train_batch(cfg, 4, d, seed=1) for d in devs}
     with torch.no_grad():
         conds = {d: render_condition_maps(res, batches[d]["flame"], cfg, res.n_faces) for d in devs}
+        if interp:
+            flm = L.interpolate_flame_batch(batches["cpu"]["flame"], draws["interp_t"])
+            maps = render_flame_maps(res, L.interp_render_flame(flm), cfg.render_image_size, res.n_faces)
+            icond = L.interp_condition_channels(
+                maps.textured, maps.normal, rendered_flame_as_condition=cfg.rendered_flame_as_condition,
+                normal_maps_as_cond=cfg.normal_maps_as_cond)
     diff = (conds["cuda"].cpu() - conds["cpu"]).abs()
     step8 = 2.0 / 255.0
     flips = (diff > step8 * 0.5).float().mean().item()
@@ -811,22 +879,126 @@ def check_train_against_cpu_plain():
     for d in devs:
         st, b = states[d], batches[d]
         cond = conds["cpu"].to(d)
-        fake_live = st.generator(cond, input_indices=b["indices"], step=cfg.max_step)
-        _, _, dg = d_loss_and_grads(st.discriminator, b["real_image"], cond, fake_live.detach(), cfg, True)
-        _, gg = g_adv_and_grads(st.generator, st.discriminator, fake_live, cond)
+        g_in, idx, interp_fn = cond, b["indices"], None
+        if interp:
+            g_in = torch.cat([cond, icond.to(d)])
+            idx = torch.cat([idx, torch.full((3,), draws["interp_identity"], device=d)])
+        fake_live = st.generator(g_in, input_indices=idx, step=cfg.max_step)
+        _, _, dg = d_loss_and_grads(st.discriminator, b["real_image"], cond, fake_live[:4].detach(), cfg, True)
+        if interp:
+            frm = torch.as_tensor(res.face_region_mask, device=d)
+
+            def interp_fn():
+                return L.interp_penalty_from_images(res, fake_live[4:], flm.to(d), draws["interp_pairs"], frm)
+        _, _, gg = g_loss_and_grads(st.generator, st.discriminator, fake_live, cond, interp_fn)
         grads[d] = [t.cpu() for t in (*dg, *gg)]
         st.step = 1  # (1 + 1) % 2 == 0: R1 fires
-        _, m = make_train_step(cfg, res, device=d, max_tris_per_tile=res.n_faces)(st, b)
+        _, m = make_train_step(cfg, res, device=d, max_tris_per_tile=res.n_faces)(st, b, draws)
         mets[d] = {k: v.item() for k, v in m.items()}
     g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                 for a, b in zip(grads["cuda"], grads["cpu"]))
-    m_err = max(abs(mets["cuda"][k] - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-12)
-                for k in ("d_loss", "g_loss", "r1", "g_total"))
-    log(f"cuda vs cpu plain (tiny train step, 503-vertex mesh, 32 px, batch 4, R1 on): cond one-step "
-        f"flips {flips:.4f} (tol 0.005); D and G gradients from the same conditions, max |diff| / "
-        f"max |cpu| per tensor {g_err:.3g} (tol 1e-3); step metrics max relative diff {m_err:.3g} "
-        f"(tol 1e-2, conditions rendered on each device); cuda {mets['cuda']} cpu {mets['cpu']}")
+    keys = ("d_loss", "g_loss", "r1", "g_total") + (("interp",) if interp else ())
+    m_err = max(abs(mets["cuda"][k] - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-12) for k in keys)
+    log(f"cuda vs cpu plain (tiny run_id-{run_id} train step, 503-vertex mesh, 32 px, batch 4, R1 on"
+        f"{', injected interpolation draws' if interp else ''}): cond one-step flips {flips:.4f} (tol 0.005); "
+        f"D and G gradients from the same conditions, max |diff| / max |cpu| per tensor {g_err:.3g} (tol "
+        f"1e-3); step metrics max relative diff {m_err:.3g} (tol 1e-2, conditions rendered on each device); "
+        f"cuda {mets['cuda']} cpu {mets['cpu']}")
     assert g_err <= 1e-3 and m_err <= 1e-2 and mets["cuda"]["r1"] > 0
+    assert not interp or mets["cuda"]["interp"] > 0
+
+
+def train_run_id0(res, counters: dict, smi: str):
+    """The run_id-0 train step at full width (the paper's flagship preset:
+    the texture-space interpolation loss, fused into one render and one G
+    forward over 2B - 1 rows).  One recorded warm-up R1 step holds every
+    launch of all seven kernels to its plain version and times them at
+    these shapes; then 3 counted steps from step 13 (R1 on the third) and a
+    profile of one more step without R1.  Returns (kernel record fields,
+    counted launches)."""
+    import torch
+
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(0, batch_size=TRAIN_BATCH)
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces, generator=torch.Generator().manual_seed(0))
+    batch = train_batch(cfg, TRAIN_BATCH, "cuda")
+    n_texels = len(res.texture_x_coords)
+    log(f"phase run_id-0 setup: {cfg.max_size} px, max_channels {cfg.max_channels}, {cfg.compute_dtype}, batch "
+        f"{TRAIN_BATCH} (+{TRAIN_BATCH - 1} interpolants in the fused G forward), r1_interval {cfg.r1_interval}, "
+        f"adaptive_interp_loss {cfg.adaptive_interp_loss}, {n_texels} valid texels: {time.perf_counter() - t0:.2f} s")
+    state.step = cfg.r1_interval - 1
+    t0 = time.perf_counter()
+    with LaunchRecorder() as rec:
+        state, m0 = step(state, batch)
+        m0 = {k: v.item() for k, v in m0.items()}
+    log(f"phase run_id-0 warm-up (R1) step incl. the on-the-spot checks of every kernel launch: "
+        f"{time.perf_counter() - t0:.2f} s; metrics {m0}")
+    assert m0["r1"] > 0 and m0["interp"] > 0 and len(rec.rounds) == 1, (m0, len(rec.rounds))
+    assert all(rec.rounds[0][k] for k in KERNELS), {k: len(v) for k, v in rec.rounds[0].items()}
+    steal = ((TRAIN_BATCH - 1, cfg.max_size, cfg.max_size, 3), (TRAIN_BATCH - 1, n_texels, 1, 2))
+    assert steal in rec.rounds[0]["sampler"], list(rec.rounds[0]["sampler"])
+    t0 = time.perf_counter()
+    parts = time_round(rec.rounds[0], rec.stats, f"run_id-0 R1 train step, batch {TRAIN_BATCH}")
+    del rec
+    log(f"phase run_id-0 kernel timings: {time.perf_counter() - t0:.2f} s; card now: "
+        + nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
+
+    state.step = 13
+    steps, launches, peak, moved = run_train_steps(step, state, batch, counters)
+    for i, dt, m, n in steps:
+        log(f"  run_id-0 step {i}: {1e3 * dt:.2f} ms host clock (synchronized), metrics {m}, launches {n}")
+    for i, dt, m, n in steps:
+        assert all(np.isfinite(v) for v in m.values()), (i, m)
+        assert (m["r1"] > 0) == ((i + 1) % cfg.r1_interval == 0), (i, m)
+        assert m["render_overflow"] == 0.0 and m["interp"] > 0, (i, m)
+        assert abs(m["g_total"] - (m["g_loss"] + m["interp"])) <= 1e-6 * abs(m["g_total"]), (i, m)
+        # One fused render, the albedo lookup and the texture steal's
+        # sampling, and the steal's backward.
+        assert n["raster"] == 1 and n["sampler"] == 2 and n["bilinear_scatter"] >= 1, (i, n)
+    assert all(moved[k] > 0 for k in moved) and moved["g_ema"] < moved["generator"], moved
+    assert all(n > 0 for n in launches.values()), f"a kernel never launched in the run_id-0 steps: {launches}"
+    t_plain = float(np.median([dt for i, dt, _, _ in steps if (i + 1) % cfg.r1_interval != 0]))
+    t_r1 = next(dt for i, dt, _, _ in steps if (i + 1) % cfg.r1_interval == 0)
+    log(f"phase run_id-0 train: {len(steps)} counted steps at batch {TRAIN_BATCH}: without R1 median "
+        f"{1e3 * t_plain:.2f} ms ({TRAIN_BATCH / t_plain:.1f} images/s), with R1 {1e3 * t_r1:.2f} ms "
+        f"({TRAIN_BATCH / t_r1:.1f} images/s); over the r1_interval {cfg.r1_interval} schedule "
+        f"{TRAIN_BATCH * cfg.r1_interval / ((cfg.r1_interval - 1) * t_plain + t_r1):.1f} images/s; "
+        f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); parameter movement "
+        f"{moved}; render overflow 0; launches {launches}; on {smi}")
+    profile_train_step(step, state, batch, r1=False, what="one run_id-0 step")
+    time_interp_penalty(res, cfg, batch)
+    return parts, launches
+
+
+def time_interp_penalty(res, cfg, batch) -> None:
+    """CUDA-event time of the interpolation penalty alone at the run_id-0
+    shapes — decode, texture steal and pairwise penalty of 15 images and
+    their image gradient (kernel 2 forward, kernel 6 backward) — the part
+    of a step that run_id 8 does not have besides G's extra rows."""
+    import torch
+
+    from gif_tpu_torch.train import losses as L
+
+    n = TRAIN_BATCH - 1
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.uniform(-1, 1, (n, cfg.max_size, cfg.max_size, 3)).astype(np.float32),
+                             device="cuda").requires_grad_(True)
+    flm = L.interpolate_flame_batch(batch["flame"], 0.5)
+    frm = torch.as_tensor(res.face_region_mask, device="cuda")
+    pairs = np.arange(n)  # n of the n (n - 1) / 2 pairs
+
+    def forward():
+        return L.interp_penalty_from_images(res, images, flm, pairs, frm)
+
+    t_fwd = event_ms(forward)
+    t_all = event_ms(lambda: torch.autograd.grad(forward(), images))
+    log(f"phase interp penalty alone ({n} images of {cfg.max_size} px, {len(res.texture_x_coords)} texels, "
+        f"CUDA events, median of 3): forward {t_fwd:.3f} ms, forward + image gradient {t_all:.3f} ms")
 
 
 def main() -> int:
@@ -839,7 +1011,7 @@ def main() -> int:
     from gif_tpu_torch.eval.sampling import load_generator_params
     from gif_tpu_torch.flame.resources import synthetic_flame_resources
     from gif_tpu_torch.ops import activations, blur_cuda
-    from gif_tpu_torch.render import raster_cuda, sampler_cuda
+    from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
     from gif_tpu_torch.serve import GifServer
     from gif_tpu_torch.train.config import get_config
 
@@ -879,6 +1051,7 @@ def main() -> int:
         "fused_bias_lrelu_bwd": activations.fused_leaky_relu_backward,
         "fir_blur": blur_cuda.blur4,
         "fir_blur_vjp": blur_cuda.blur4_vjp,
+        "bilinear_scatter": scatter_cuda.scatter_bilinear,
     }
     serve_kernels = [KERNELS[k]["name"] for k in ("raster", "sampler", "flr", "blur")]
     try:
@@ -961,7 +1134,7 @@ def main() -> int:
     log(f"phase train warm-up (R1) step incl. Triton JIT and the on-the-spot checks of every kernel "
         f"launch: {time.perf_counter() - t0:.2f} s; metrics {m0}")
     assert m0["r1"] > 0 and len(trained.rounds) == 1
-    assert all(trained.rounds[0][k] for k in KERNELS), {k: len(v) for k, v in trained.rounds[0].items()}
+    assert all(trained.rounds[0][k] for k in RUN8_KERNELS), {k: len(v) for k, v in trained.rounds[0].items()}
     t0 = time.perf_counter()
     train_parts = time_round(trained.rounds[0], trained.stats, f"R1 train step, batch {TRAIN_BATCH}")
     del trained
@@ -981,7 +1154,8 @@ def main() -> int:
         assert (m["r1"] > 0) == ((i + 1) % cfg.r1_interval == 0), (i, m)
         assert m["render_overflow"] == 0.0, (i, m)
     assert all(moved[k] > 0 for k in moved) and moved["g_ema"] < moved["generator"], moved
-    assert all(n > 0 for n in launches.values()), f"a kernel never launched in the train steps: {launches}"
+    assert all(launches[KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), \
+        f"a kernel never launched in the train steps: {launches}"
     t_plain = float(np.median(plain_steps))
     t_r1 = r1_steps[0][1]
     log(f"phase train: {len(steps)} counted steps at batch {TRAIN_BATCH}: without R1 median "
@@ -995,24 +1169,35 @@ def main() -> int:
     time_r1_parts(state, batch, cfg, res)
     del state, step, batch
 
-    # --- phase 9: R1's grad-of-grad through the kernels vs the plain versions ---
+    # --- phases 9-10: the run_id-0 train step (interpolation loss) ---
+    train0_parts, launches0 = train_run_id0(res, counters, smi)
+
+    # --- phase 11: R1's grad-of-grad through the kernels vs the plain versions ---
     check_r1_narrow(counters)
 
-    # --- phase 10: a tiny train step on the card vs the CPU plain path ---
-    check_train_against_cpu_plain()
+    # --- phase 12: tiny train steps on the card vs the CPU plain path ---
+    check_train_against_cpu_plain(8)
+    check_train_against_cpu_plain(0)
 
-    # One record per kernel: launches from the counted train steps, the
-    # other numbers at the train shapes (one R1 step's launches); the
-    # forward kernels carry their served-path numbers under "serve", and
-    # max_abs_err is the larger of the two paths'.
+    # One record per kernel: launches from the counted run_id-8 train steps
+    # and the other numbers at its shapes (one R1 step's launches); the
+    # forward kernels carry their served-path numbers under "serve", every
+    # kernel its run_id-0 numbers under "run_id0" (the scatter, which only
+    # run_id 0 runs, also at the top); max_abs_err is the largest of all.
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     records = []
     for kind, meta in KERNELS.items():
-        r = {**meta, "launches": launches[meta["name"]], **train_parts[kind]}
+        run0 = {"launches": launches0[meta["name"]], **train0_parts[kind]}
+        if kind in train_parts:
+            r = {**meta, "launches": launches[meta["name"]], **train_parts[kind]}
+        else:
+            r = {**meta, **run0}
         if kind in serve_parts:
             r["serve"] = {"launches": serve_launches[meta["name"]], **serve_parts[kind]}
             r["max_abs_err"] = max(r["max_abs_err"], serve_parts[kind]["max_abs_err"])
+        r["run_id0"] = run0
+        r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"])
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": records}))
     print(smi)

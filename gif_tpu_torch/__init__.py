@@ -10,9 +10,10 @@ Conventions:
 - imports ``torch`` and never JAX or anything of ``gif_tpu``;
 - NCHW inside the networks; public functions keep ``gif_tpu``'s layout
   (condition maps and images NHWC, images in [-1, 1]);
-- every TPU kernel of the ported paths (serving, and the run_id-8 train
-  step) is a hand-written Hopper kernel (CUDA C++ under ``csrc/`` or
-  Triton) with a plain PyTorch version beside it: a wrapper takes the plain
+- every TPU kernel of ``gif_tpu`` (six kernel functions, reached by the
+  serving path and the run_id-8 and run_id-0 train steps) is a
+  hand-written Hopper kernel (CUDA C++ under ``csrc/`` or Triton) with a
+  plain PyTorch version beside it: a wrapper takes the plain
   version for CPU tensors only and launches the kernel for CUDA tensors;
   gradients are ``torch.autograd.Function``s whose backward is a kernel
   too, differentiable again where R1 needs it;

@@ -1,2 +1,2 @@
-"""The conditional StyleGAN2 generator and discriminator (port of
-``gif_tpu.models``)."""
+"""The conditional StyleGAN2 generator and discriminator, and the FLAME
+texture steal (port of ``gif_tpu.models``)."""

@@ -5,5 +5,8 @@
   interpolation, and its CPU/CUDA dispatching wrapper;
 - ``shading``: SH9 shading, PCA albedo and the plain bilinear sampler;
 - ``sampler_cuda``: kernel 2, the albedo sampler, and its wrapper;
+- ``sampling_ops``: ``sample_at_points``, the texture steal's
+  differentiable point sampler (kernel 2 forward, kernel 6 backward);
+- ``scatter_cuda``: kernel 6, the bilinear scatter, and its wrapper;
 - ``renderer``: ``render_tex_and_normal``, FLAME codes -> condition maps.
 """

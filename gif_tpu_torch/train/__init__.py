@@ -1,5 +1,6 @@
 """Training: configuration, condition rendering, losses, the train state
-and the run_id-8 train step (port of ``gif_tpu.train``)."""
+and the GAN train step of run ids 0, 3, 7, 8 and 29 (port of
+``gif_tpu.train``)."""
 
 from gif_tpu_torch.train.config import TINY_OVERRIDES, TrainConfig, get_config
 

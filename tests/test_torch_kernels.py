@@ -1,6 +1,8 @@
 """The port's hand-written kernels against their plain PyTorch versions, on
 a card.  Every kernel computes in its plain version's arithmetic order
-with explicitly rounded operations, so the bar is equality.
+with explicitly rounded operations, so the bar is equality — except the
+bilinear scatter (kernel 6), whose atomics add in no fixed order: its bar
+is ``max |got - plain| <= 1e-5 * max |plain| + 1e-7``.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch (skip the JAX-importing conftest there):
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from gif_tpu_torch.ops import activations, blur_cuda
-from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, shading
+from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, sampling_ops, scatter_cuda, shading
 from torch_port_common import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -117,6 +119,48 @@ def test_blur_vjp_kernel_matches_plain(cuda_device, dtype, pads):
     assert dx.shape == x.shape and torch.equal(dx, want)
 
 
+def _scatter_points(rng, b, p, h, w):
+    """Points over [-1.2, 1.2]^2 (some outside the image), a third of them
+    on one texel (contention), and the corners and edges exactly."""
+    pts = rng.uniform(-1.2, 1.2, (b, p, 2)).astype(np.float32)
+    pts[:, : p // 3] = (2 * (np.array([5.5, 3.5]) + 0.25) / np.array([w, h]) - 1).astype(np.float32)
+    pts[:, -4:] = np.array([[-1, -1], [1, 1], [-1, 1], [1 - 1e-7, -1]], np.float32)
+    return pts
+
+
+@pytest.mark.parametrize("b,p,h,w,c", [(3, 20001, 64, 48, 3), (2, 777, 256, 256, 3), (1, 5, 7, 9, 2)])
+def test_scatter_kernel_matches_plain(cuda_device, b, p, h, w, c):
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(_scatter_points(rng, b, p, h, w)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((b, p, c)).astype(np.float32)).to(cuda_device)
+    before = scatter_cuda.scatter_bilinear.launches
+    got = scatter_cuda.scatter_bilinear(g, pts, h, w)
+    want = sampling_ops.scatter_bilinear_plain(g, pts, h, w)
+    torch.cuda.synchronize()
+    assert scatter_cuda.scatter_bilinear.launches == before + 1
+    assert got.shape == (b, h, w, c) and got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
+
+
+def test_sample_at_points_launches_kernels_2_and_6(cuda_device):
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32)).to(cuda_device)
+    pts = torch.from_numpy(_scatter_points(rng, 2, 1001, 64, 64)).to(cuda_device)
+    cot = torch.from_numpy(rng.standard_normal((2, 1001, 3)).astype(np.float32)).to(cuda_device)
+    img.requires_grad_(True)
+    before = sampler_cuda.grid_sample.launches, scatter_cuda.scatter_bilinear.launches
+    out = sampling_ops.sample_at_points(img, pts)
+    (d_img,) = torch.autograd.grad(out, img, cot)
+    torch.cuda.synchronize()
+    assert (sampler_cuda.grid_sample.launches, scatter_cuda.scatter_bilinear.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = sampling_ops.sample_at_points_plain(img.detach(), pts)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    plain = sampling_ops.scatter_bilinear_plain(cot, pts, 64, 64)
+    assert (d_img - plain).abs().max().item() <= 1e-5 * plain.abs().max().item() + 1e-7
+
+
 def test_kernel_wrappers_raise_on_unsupported_input(cuda_device):
     with pytest.raises(ValueError):
         blur_cuda.blur4(torch.zeros((1, 1, 8, 8), dtype=torch.float16, device=cuda_device),
@@ -124,3 +168,6 @@ def test_kernel_wrappers_raise_on_unsupported_input(cuda_device):
     with pytest.raises(ValueError):
         sampler_cuda.grid_sample(torch.zeros((1, 4, 4, 3), dtype=torch.float64, device=cuda_device),
                                  torch.zeros((1, 2, 2, 2), dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError):
+        scatter_cuda.scatter_bilinear(torch.zeros((1, 4, 3), dtype=torch.float64, device=cuda_device),
+                                      torch.zeros((1, 4, 2), dtype=torch.float64, device=cuda_device), 8, 8)

@@ -39,12 +39,12 @@ from gif_tpu_torch.train.config import get_config
 from gif_tpu_torch.train.state import create_train_state, load_train_state, make_optimizers
 from gif_tpu_torch.train.step import (
     d_loss_and_grads,
-    g_adv_and_grads,
+    g_loss_and_grads,
     g_schedule,
     make_train_step,
 )
 from gif_tpu_torch.utils.ema import ema_update
-from torch_port_common import tiny_overrides
+from torch_port_common import check_step_update, numpy_state, port_state, tiny_overrides, train_batch
 
 B = 4
 RES_T = synthetic_flame_resources(seed=1, n_vertices=503)
@@ -56,28 +56,7 @@ def _over(**extra):
 
 
 def _batch(cfg, seed=0):
-    """bench.py's seeded batch at the tiny size, plus precomputed conditions."""
-    rng = np.random.default_rng(seed)
-    s = cfg.max_size
-    flame = np.zeros((B, 236), np.float32)
-    flame[:, :100] = rng.standard_normal((B, 100)) * 0.1
-    flame[:, 150:156] = rng.standard_normal((B, 6)) * 0.05
-    flame[:, 156] = 8.0
-    flame[:, 209:212] = 3.0
-    return {
-        "real_image": rng.uniform(-1, 1, (B, s, s, 3)).astype(np.float32),
-        "flame": flame,
-        "indices": rng.integers(0, cfg.embedding_vocab_size, B).astype(np.int32),
-        "cond": (np.floor(rng.uniform(0, 1, (B, s, s, 6)) * 255) / 255 * 2 - 1).astype(np.float32),
-    }
-
-
-def _numpy_state(state):
-    return jax.tree_util.tree_map(np.asarray, jax.device_get(state))
-
-
-def _port_state(cfg, jstate):
-    return load_train_state(create_train_state(cfg, device="cpu"), convert_train_state(_numpy_state(jstate)))
+    return train_batch(cfg, B, seed)
 
 
 @pytest.fixture(scope="module")
@@ -166,14 +145,14 @@ def test_step_gradients_match_jax(jax_steps):
         jstate.g_params
     )
 
-    state = _port_state(cfg, jstate)
+    state = port_state(cfg, jstate)
     gen, disc = state.generator, state.discriminator
     tb = {k: torch.from_numpy(v) for k, v in bt.items()}
     fake_live = gen(tb["cond"], input_indices=tb["indices"].long(), step=cfg.max_step)
     _, r1, d_grads = d_loss_and_grads(disc, tb["real_image"], tb["cond"], fake_live.detach(), cfg, True)
     assert r1.item() > 0
-    _, g_grads = g_adv_and_grads(gen, disc, fake_live, tb["cond"])
-    want = convert_train_state(_numpy_state(jstate).replace(d_params=d_want, g_params=g_want))
+    _, _, g_grads = g_loss_and_grads(gen, disc, fake_live, tb["cond"])
+    want = convert_train_state(numpy_state(jstate).replace(d_params=d_want, g_params=g_want))
     for got_grads, module, want_sd in (
         (d_grads, disc, want["discriminator"]), (g_grads, gen, want["generator"])
     ):
@@ -199,51 +178,22 @@ def test_train_steps_match_jax(jax_steps, render):
     metric_rtol, delta_bar = (2e-3, 5e-2) if render else (1e-4, 1e-2)
     for i in (1, 2):
         jprev, (jnew, jm) = jax_steps[render][i - 1][0], jax_steps[render][i]
-        state = _port_state(cfg, jprev)
-        old = convert_train_state(_numpy_state(jprev))
-        want = convert_train_state(_numpy_state(jnew))
+        state = port_state(cfg, jprev)
+        old = convert_train_state(numpy_state(jprev))
+        want = convert_train_state(numpy_state(jnew))
         state, m = step(state, batch)
         assert state.step == want["step"] == i and state.used_samples == want["used_samples"] == B * i
         assert (m["r1"].item() > 0) == (i == 2) and float(jm["r1"] > 0) == (i == 2)
         assert m["render_overflow"].item() == float(jm["render_overflow"]) == 0.0
         for k in ("d_loss", "g_loss", "r1", "g_total"):
             np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=metric_rtol, err_msg=k)
-        for what, module in (("generator", state.generator), ("discriminator", state.discriminator)):
-            got = dict(module.named_parameters())
-            for name, w in want[what].items():
-                if name not in got:  # the frozen embedding buffer
-                    continue
-                dj = w.numpy() - old[what][name].numpy()
-                dt = got[name].detach().numpy() - old[what][name].numpy()
-                bar = delta_bar * np.abs(dj).mean() + 1e-12
-                assert np.abs(dt - dj).mean() <= bar, f"step {i} {what} {name}"
-        decay = np.float32(cfg.ema_decay)
-        n_held, n_conv = 0, 0
-        for name, p in state.g_ema.named_parameters():
-            e_old = old["g_ema"][name].numpy()
-            g_new = state.generator.get_parameter(name).detach().numpy()
-            np.testing.assert_allclose(p.numpy(), e_old * decay + g_new * (1 - decay),
-                                       rtol=1e-6, atol=1e-7, err_msg=name)
-            dj = want["g_ema"][name].numpy() - e_old
-            dt = p.detach().numpy() - e_old
-            held = np.abs(dj) >= 32 * np.spacing(np.abs(e_old))
-            if held.any():
-                bar = delta_bar * np.abs(dj[held]).mean()
-                assert np.abs(dt - dj)[held].mean() <= bar, f"step {i} g_ema {name}"
-            if not name.startswith("mapping."):
-                n_held, n_conv = n_held + held.sum(), n_conv + held.size
-        assert n_held >= 0.5 * n_conv, (n_held, n_conv)
-        moved = [np.abs(got - old["generator"][n].numpy()).mean()
-                 for n, got in ((n, p.detach().numpy()) for n, p in state.generator.named_parameters())]
-        moved_ema = [np.abs(p.detach().numpy() - old["g_ema"][n].numpy()).mean()
-                     for n, p in state.g_ema.named_parameters()]
-        assert 0 < sum(moved_ema) < sum(moved)
+        check_step_update(state, old, want, cfg, delta_bar, f"step {i}")
 
 
 def test_converted_train_state_fits_the_port_exactly(jax_steps):
     cfg = get_config(8, **_over())
     jstate = jax_steps[False][1][0]  # after one step: moments and counters set
-    conv = convert_train_state(_numpy_state(jstate))
+    conv = convert_train_state(numpy_state(jstate))
     state = create_train_state(cfg, device="cpu")
     for key, module in (("generator", state.generator), ("g_ema", state.g_ema),
                         ("discriminator", state.discriminator)):
@@ -307,7 +257,6 @@ def test_n_critic_schedules():
 @pytest.mark.parametrize("flag", [
     dict(gen_reg_type="path_len_reg"), dict(embedding_reg_weight=0.1),
     dict(shfld_cond_as_neg_smpl=True), dict(d_input_noise_std=0.1),
-    dict(apply_texture_space_interpolation_loss=True),
 ])
 def test_unported_branches_raise(flag):
     over = {**_over(), **flag}
