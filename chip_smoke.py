@@ -58,9 +58,13 @@ Phases (each raises on failure; nothing is caught):
     the interpolation draws injected).
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
-(the kernels, copies and memsets a call runs, summed from torch.profiler),
-so host launch overhead is excluded; ``wall_ms`` is a CUDA-event time per
-call over back-to-back calls, which includes it.  Every number of a kernel
+from CUDA events around 20 calls (plain versions: 3) queued behind a
+device-side spin (:func:`queued_ms`), so host launch overhead is excluded
+except where a call waits on the device (the plain rasterizer and
+scatter); kernel 1's ``ms`` is the kernel alone and its ``wrapper_ms`` the
+wrapper's (binning included) device events from torch.profiler;
+``wall_ms`` is a CUDA-event time per call over back-to-back calls, which
+includes host overhead.  Every number of a kernel
 record is a sum over its launches of one R1 train step (batch 16), each
 distinct input timed once: run_id 8's at the top (the scatter's: run_id
 0's), run_id 0's under ``run_id0``; the forward kernels also carry the same
@@ -95,6 +99,7 @@ F32_OPS_PER_S = 67e12
 # 2 sub, 3 compares, and 3 mul + 2 add for an inside hit).
 RASTER_OPS_PER_PAIR = 27
 ITERS = 20
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz SM clock
 
 
 def log(msg: str) -> None:
@@ -109,19 +114,35 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
     return out[0]
 
 
-def device_ms(fn, iters: int = ITERS) -> float:
+def device_ms(fn, iters: int = ITERS):
     """Device time per call: every CUDA kernel / copy ``fn`` runs, summed
-    by torch.profiler over ``iters`` calls."""
+    by torch.profiler over ``iters`` calls; None if three profiles recorded
+    no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in _device_events(prof)) / 1e3 / iters
+    # On the H100 the profiler has handed back profiles with none or only
+    # some of their device events.  The calls sit 10 ms inside the profiled
+    # window, and the profile is taken until two agree on the number of
+    # device events (at most three times; then the one with the most
+    # events counts).
+    seen, agreed = {}, None  # seen: device events in a profile -> ms per call
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        events = _device_events(prof)
+        if len(events) in seen:
+            agreed = len(events)
+            break
+        seen[len(events)] = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    n = max(seen) if agreed is None else agreed
+    return seen[n] if n else None
 
 
 def _device_events(prof) -> list:
@@ -159,6 +180,35 @@ def log_profile(prof, wall: float, what: str) -> None:
         f"sum to {total:.2f} ms on {streams} stream(s)), {len(events)} device ops")
     for ms, n, name in sorted(((ms, n, k) for k, (ms, n) in rows.items()), reverse=True)[:20]:
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    # Kernel 4 runs as several template instances (csrc/blur.cu); their sum.
+    blur = [(ms, n) for k, (ms, n) in rows.items() if "blur4_" in k]
+    if blur:
+        log(f"  {sum(ms for ms, _ in blur):8.3f} ms  x{sum(n for _, n in blur):<4d} all blur4_* rows (kernel 4)")
+
+
+def queued_ms(fn, iters: int = ITERS) -> float:
+    """Device time per call of ``fn``: ``iters`` calls between two CUDA
+    events, queued behind a 10 ms device-side spin so that the host's
+    launch overhead opens no gaps between them (the kernels' own
+    back-to-back gaps stay in).  Where ``fn`` waits on the device, host
+    time between its launches is in too.  Every kernel, library and plain
+    time is taken so: on the H100, torch.profiler's device events have read
+    up to ~40% low in some profiles that held every event, and none at all
+    in others.
+    """
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def wall_ms(fn, iters: int = ITERS) -> float:
@@ -183,9 +233,9 @@ def nbytes(*ts) -> int:
 
 def times(kernel_fn, plain_fn, library_fn=None) -> dict:
     return dict(
-        ms=device_ms(kernel_fn),
-        plain_ms=device_ms(plain_fn, 3),
-        library_ms=None if library_fn is None else device_ms(library_fn),
+        ms=queued_ms(kernel_fn),
+        plain_ms=queued_ms(plain_fn, 3),
+        library_ms=None if library_fn is None else queued_ms(library_fn),
         wall_ms=wall_ms(kernel_fn),
     )
 
@@ -358,6 +408,20 @@ class LaunchRecorder:
         self.rounds = []
         self.stats = {k: {} for k in KERNELS}
         self.saved = []
+        # The incoming gradients of blur VJPs that Blur4Function.backward
+        # must copy to contiguous first (cuDNN hands some back
+        # channels-last): (shape, stride, dtype) -> count.
+        self.vjp_copies = {}
+        orig_bwd = blur_cuda.Blur4Function.__dict__["backward"]
+
+        def backward(ctx, g):
+            if not g.is_contiguous():
+                key = (tuple(g.shape), tuple(g.stride()), g.dtype)
+                self.vjp_copies[key] = self.vjp_copies.get(key, 0) + 1
+            return orig_bwd.__func__(ctx, g)
+
+        self.saved.append((blur_cuda.Blur4Function, "backward", orig_bwd))
+        blur_cuda.Blur4Function.backward = staticmethod(backward)
 
         def blur_kind(args):
             return "blur_vjp" if args[3] is blur_cuda.blur4_vjp else "blur"
@@ -396,14 +460,21 @@ class LaunchRecorder:
 
 def time_raster(fv, attrs, h, w, tile, cap):
     """(times, bytes ms, operations ms, info) of kernel 1 on these inputs:
-    its wrapper (torch binning + setup + kernel) and the kernel alone."""
+    the kernel alone (``ms``), and its wrapper — torch binning, which waits
+    on the device, then the kernel — by torch.profiler's device events
+    (``wrapper_ms``; None if the profiler recorded none) and by the host
+    clock around back-to-back calls (``wall_ms``)."""
     from gif_tpu_torch.render import raster, raster_cuda
 
-    t = times(lambda: raster_cuda.rasterize_cuda(fv, attrs, h, w, tile, cap),
-              lambda: raster.rasterize_plain(fv, attrs, h=h, w=w, tile=tile, max_tris_per_tile=cap))
+    def wrapper():
+        return raster_cuda.rasterize_cuda(fv, attrs, h, w, tile, cap)
+
     ids, counts, overflow = raster.bin_faces(fv, tile, cap, h, w)
     tab = raster.face_table(fv)
-    t["kernel_only_ms"] = device_ms(lambda: raster_cuda.launch_kernel(tab, attrs, ids, counts, h, w, tile))
+    t = times(lambda: raster_cuda.launch_kernel(tab, attrs, ids, counts, h, w, tile),
+              lambda: raster.rasterize_plain(fv, attrs, h=h, w=w, tile=tile, max_tris_per_tile=cap))
+    t["wall_ms"] = wall_ms(wrapper)
+    t["wrapper_ms"] = device_ms(wrapper)
     pairs = bbox_pixel_tests(fv, h, w)
     out_bytes = fv.shape[0] * h * w * (4 + 4 + 12 + 4 * attrs.shape[-1]) + overflow.numel()
     info = {"bbox_pixel_tests": pairs, "candidates_per_tile_max": int(counts.max()),
@@ -429,7 +500,8 @@ def time_sampler(img, grid):
     # Per call site (the albedo lookup, the texture steal), by grid shape.
     at = "x".join(map(str, grid.shape))
     return t, nbytes(img, grid, got) / HBM_BYTES_PER_S * 1e3, 0.0, {
-        "library_max_diff": lib_diff, f"ms_at_grid_{at}": t["ms"], f"library_ms_at_grid_{at}": t["library_ms"]}
+        "library_max_diff": lib_diff, f"ms_at_grid_{at}": t["ms"], f"library_ms_at_grid_{at}": t["library_ms"],
+        f"ms_over_library_at_grid_{at}": t["ms"] / t["library_ms"]}
 
 
 def time_flr(x, bias, neg, scale):
@@ -466,7 +538,7 @@ def time_blur(x, taps, pads, _counter):
     t = times(lambda: blur_cuda.blur4_cuda(x, taps, pads),
               lambda: blur_cuda.blur4_plain(x, taps, pads),
               lambda: F.conv2d(x, k2, padding=pads[0], groups=c))
-    return t, nbytes(x, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+    return t, nbytes(x, got) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff, "_map": got.shape[-1]}
 
 
 def time_blur_vjp(g, taps, pads, _counter):
@@ -494,7 +566,8 @@ def time_blur_vjp(g, taps, pads, _counter):
     lib_diff = (library().float() - got.float()).abs().max().item()
     t = times(lambda: blur_cuda.blur4_cuda(g, taps, pads),
               lambda: blur_cuda.blur4_plain(g, taps, pads), library)
-    return t, (nbytes(g) + nbytes(got)) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff}
+    return t, (nbytes(g) + nbytes(got)) / HBM_BYTES_PER_S * 1e3, 0.0, {"library_max_diff": lib_diff,
+                                                                    "_map": got.shape[-1]}
 
 
 def time_scatter(g, pts, h, w):
@@ -532,14 +605,22 @@ def time_round(groups: dict, stats: dict, per: str) -> dict:
     for kind, sigs in groups.items():
         if not sigs:
             continue
-        tot, t_bytes, t_ops, info = {}, 0.0, 0.0, {}
+        tot, t_bytes, t_ops, info, by_map = {}, 0.0, 0.0, {}, {}
         for rec in sigs.values():
             t, b, o, extra = TIMERS[kind](*rec["args"])
             n = rec["n"]
             add_times(tot, {k: None if v is None else n * v for k, v in t.items()})
             t_bytes, t_ops = t_bytes + n * b, t_ops + n * o
+            if "_map" in extra:  # kernel 4: launches, ms and bound by output map width
+                m = by_map.setdefault(extra.pop("_map"), {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+                m["launches"] += n
+                m["ms"] += n * t["ms"]
+                m["bound_ms"] += n * b
             for k, v in extra.items():
                 info[k] = max(info.get(k, v), v)
+        if by_map:
+            info["share_of_bound_by_map"] = {
+                w: {**m, "share": m["bound_ms"] / m["ms"]} for w, m in sorted(by_map.items())}
         n = sum(r["n"] for r in sigs.values())
         bound_by = "operations" if t_ops > t_bytes else "bytes"
         out[kind] = dict(max_abs_err=stats[kind]["max_abs_err"], bound_ms=max(t_bytes, t_ops),
@@ -555,6 +636,26 @@ def time_round(groups: dict, stats: dict, per: str) -> dict:
             f"{max(t_bytes, t_ops):.4f} ({bound_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f}); "
             f"{extras}; inputs {sorted((_label(kind, sig), r['n']) for sig, r in sigs.items())}")
     return out
+
+
+def time_vjp_copies(copies: dict, what: str) -> dict:
+    """Device time of the ``g.contiguous()`` copies Blur4Function.backward
+    made in front of kernel 4's VJP launches of one recorded step: each
+    (shape, stride, dtype) timed once on a tensor of that layout, times its
+    count."""
+    import torch
+
+    total_ms, n, layouts = 0.0, 0, {}
+    for (shape, stride, dtype), k in copies.items():
+        src = torch.empty_strided(shape, stride, dtype=dtype, device="cuda").normal_()
+        total_ms += k * queued_ms(lambda: src.contiguous())
+        n += k
+        layout = "channels_last" if src.is_contiguous(memory_format=torch.channels_last) else "other"
+        layouts[layout] = layouts.get(layout, 0) + k
+    log(f"blur VJP gradient copies ({what}): {n} of the step's VJP launches got a non-contiguous gradient "
+        f"{layouts}; their .contiguous() copies take {total_ms:.4f} ms of device time (queued CUDA events, "
+        f"{len(copies)} distinct layouts)")
+    return {"g_copies_per_step": n, "g_copy_ms_per_step": total_ms, "g_copy_layouts": layouts}
 
 
 def check_against_cpu_plain():
@@ -944,6 +1045,7 @@ def train_run_id0(res, counters: dict, smi: str):
     assert steal in rec.rounds[0]["sampler"], list(rec.rounds[0]["sampler"])
     t0 = time.perf_counter()
     parts = time_round(rec.rounds[0], rec.stats, f"run_id-0 R1 train step, batch {TRAIN_BATCH}")
+    parts["blur_vjp"].update(time_vjp_copies(rec.vjp_copies, f"run_id-0 R1 step, batch {TRAIN_BATCH}"))
     del rec
     log(f"phase run_id-0 kernel timings: {time.perf_counter() - t0:.2f} s; card now: "
         + nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
@@ -1137,6 +1239,7 @@ def main() -> int:
     assert all(trained.rounds[0][k] for k in RUN8_KERNELS), {k: len(v) for k, v in trained.rounds[0].items()}
     t0 = time.perf_counter()
     train_parts = time_round(trained.rounds[0], trained.stats, f"R1 train step, batch {TRAIN_BATCH}")
+    train_parts["blur_vjp"].update(time_vjp_copies(trained.vjp_copies, f"run_id-8 R1 step, batch {TRAIN_BATCH}"))
     del trained
     log(f"phase train kernel timings: {time.perf_counter() - t0:.2f} s; card now: "
         + nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))

@@ -4,11 +4,16 @@ Replaces the TPU kernel ``gif_tpu/ops/blur_pallas.py::_blur_slab_kernel``
 (reached through ``_blur4_fwd_impl`` / ``blur4_pallas`` and its
 ``custom_vjp``).  The CUDA source is ``gif_tpu_torch/csrc/blur.cu``; its
 header says what bounds it on the H100 (memory) and how the design meets
-that (a halo'd tile in shared memory, both passes fused, the pads never
-materialized).  Call sites: the upsampling modulated conv (``ops/conv.py``:
-gain 4, pads (1, 1) on the odd ``2H+1`` transposed-conv outputs) and the
-discriminator's down-blurs (``models/layers.py`` ``ConvLayer``: pads (2, 2)
-before a 3x3 and (1, 1) before the 1x1 skip).
+that (both passes fused, the pads never materialized; maps up to 24 px
+staged whole, several planes a CTA, in shared memory; larger maps in
+register-tiled strips of 8 columns by 8 or 16 rows, 16-byte row loads with
+the halo from neighbour lanes where the rows are aligned;
+:func:`blur4_launch_geometry` picks the path and the grid from the map's
+size).  Call sites: the upsampling modulated
+conv (``ops/conv.py``: gain 4, pads (1, 1) on the odd ``2H+1``
+transposed-conv outputs) and the discriminator's down-blurs
+(``models/layers.py`` ``ConvLayer``: pads (2, 2) before a 3x3 and (1, 1)
+before the 1x1 skip).
 
 The blur is linear, so its VJP is the same kernel on the incoming gradient
 with the taps reversed and each pad ``p`` replaced by ``3 - p`` (the
@@ -59,6 +64,53 @@ def blur4_plain(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
     return o.to(x.dtype)
 
 
+# Kernel 4's launch geometry (csrc/blur.cu), 256 threads a CTA.  Maps of
+# at most PLANE_MAP x PLANE_MAP outputs go whole-plane: a CTA stages about
+# PLANE_OUTPUTS outputs' worth of consecutive planes (at most PLANE_SMEM
+# bytes of f32 inputs) in shared memory.
+# Larger maps go in strips: a thread walks 8 output columns by ``rows``
+# output rows of one plane, ``rows`` one of BLUR_ROWS.
+BLUR_THREADS = 256
+BLUR_COLS = 8
+BLUR_ROWS = (8, 16)
+PLANE_MAP = 24
+PLANE_OUTPUTS = 2048
+PLANE_SMEM = 48 * 1024
+MODES = {"strips": 0, "strips_vec": 1, "planes": 2}
+
+
+def blur4_launch_geometry(planes: int, ho: int, wo: int) -> dict:
+    """Kernel 4's launch geometry for ``planes`` (n, c) planes of ho x wo
+    outputs.  Small maps (``mode`` "planes"): ``per_cta`` consecutive planes
+    a CTA — a contiguous span in and out, so one CTA's loads and stores are
+    coalesced across planes.  Larger maps (``mode`` "strips"): ``rows`` per
+    thread strip (the one of BLUR_ROWS that loads the fewest input rows
+    per column, ``row_strips * (rows + 3)``), the column groups and row
+    strips of a plane and the thread count; threads walk column group
+    fastest, then row strip, then plane (:func:`blur4_thread_tiles`), so a
+    warp covers 256 output columns of a wide map.  ``blocks``: CTAs."""
+    if max(ho, wo) <= PLANE_MAP:
+        # Inputs are at most 3 larger than outputs (pads in [0, 3]).
+        per_cta = max(1, min(PLANE_OUTPUTS // (ho * wo), PLANE_SMEM // (4 * (ho + 3) * (wo + 3))))
+        return dict(mode="planes", per_cta=per_cta, blocks=-(-planes // per_cta))
+    rows = min(BLUR_ROWS, key=lambda r: -(-ho // r) * (r + 3))
+    col_groups = -(-wo // BLUR_COLS)
+    row_strips = -(-ho // rows)
+    threads = planes * col_groups * row_strips
+    return dict(mode="strips", rows=rows, col_groups=col_groups, row_strips=row_strips, threads=threads,
+                blocks=-(-threads // BLUR_THREADS))
+
+
+def blur4_thread_tiles(geom: dict, t: np.ndarray):
+    """The strip kernels' mapping of global thread indices ``t`` to tiles:
+    (plane, first output row, first output column) of each; a thread whose
+    plane is past the last writes nothing (``csrc/blur.cu`` computes the
+    same)."""
+    cg = t % geom["col_groups"]
+    strip = t // geom["col_groups"]
+    return strip // geom["row_strips"], (strip % geom["row_strips"]) * geom["rows"], cg * BLUR_COLS
+
+
 def blur4_cuda(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA bf16 / f32 NCHW tensors only); the
     caller counts the launch."""
@@ -69,11 +121,26 @@ def blur4_cuda(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
     x = x.contiguous()
     n, c, h, w = x.shape
     ho, wo = _out_shape(x, pads)
+    if min(n * c, ho, wo) <= 0 or max(x.numel(), n * c * ho * wo) >= 2**31:
+        raise ValueError(f"blur kernel takes a non-empty output and 32-bit indices, got {tuple(x.shape)} {pads}")
     out = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
-    fn = kernels.function("gif_blur4_forward", 2, 8, 4)
+    g = blur4_launch_geometry(n * c, ho, wo)
+    if g["mode"] == "planes":
+        mode, count, rows, groups, strips = MODES["planes"], n * c, g["per_cta"], 0, 0
+    else:
+        # 16-byte row loads need every input row on a 16-byte boundary and
+        # whole 8-column groups.
+        vec_load = w % BLUR_COLS == 0 and x.data_ptr() % 16 == 0
+        mode = MODES["strips_vec" if vec_load else "strips"]
+        count, rows, groups, strips = g["threads"], g["rows"], g["col_groups"], g["row_strips"]
+    if count >= 2**31:
+        raise ValueError(f"blur kernel indexes threads in 32 bits, got {count}")
+    # 16-byte row stores: whole 8-column groups on 16-byte boundaries.
+    vec_store = wo % BLUR_COLS == 0 and out.data_ptr() % 16 == 0
+    fn = kernels.function("gif_blur4_forward", 2, 14, 4)
     err = fn(
-        x.data_ptr(), out.data_ptr(), n * c, h, w, ho, wo, pads[0], pads[2],
-        int(x.dtype == torch.bfloat16), *taps, kernels.stream_ptr(x),
+        x.data_ptr(), out.data_ptr(), mode, g["blocks"], count, rows, groups, strips, h, w, ho, wo,
+        pads[0], pads[2], int(x.dtype == torch.bfloat16), int(vec_store), *taps, kernels.stream_ptr(x),
     )
     kernels.check(err, "gif_blur4_forward")
     return out

@@ -1,0 +1,178 @@
+"""What the port's kernels 2 and 4 are launched with, checked on the CPU.
+
+The CUDA kernels run only on a card; the geometry and argument helpers
+around them are pure Python, so the launch of kernel 4 (which thread walks
+which strip of which plane) and kernel 2's stride arguments (read in
+place, never copied) are held here at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gif_tpu_torch.ops import blur_cuda
+from gif_tpu_torch.render import sampling_ops, shading
+from gif_tpu_torch.render.sampler_cuda import sampler_strides
+
+# Planes of the main path: batch x channels of the run_id-8 step (16),
+# the fused run_id-0 G forward (31) and a served batch (8), at 512 and 128
+# channels.
+PLANES = [16 * 512, 31 * 512, 16 * 128, 31 * 128, 8 * 512]
+# Blur output maps of the main path (G's up-blurs, D's down-blurs and
+# their VJPs) and odd sizes.
+MAPS = [8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 255, 256, 257, 1, 3, 35]
+
+
+def _check_geometry(planes, ho, wo):
+    g = blur_cuda.blur4_launch_geometry(planes, ho, wo)
+    if g["mode"] == "planes":
+        _check_plane_geometry(g, planes, ho, wo)
+    else:
+        _check_strip_geometry(g, planes, ho, wo)
+    return g
+
+
+def _check_plane_geometry(g, planes, ho, wo):
+    # CTA b stages planes [b * per_cta, min((b + 1) * per_cta, planes)) and
+    # writes every output of each: each plane in exactly one CTA, no CTA
+    # empty, the staged inputs inside the shared-memory budget.
+    assert max(ho, wo) <= blur_cuda.PLANE_MAP
+    k = g["per_cta"]
+    assert k >= 1 and (g["blocks"] - 1) * k < planes <= g["blocks"] * k
+    assert k * (ho + 3) * (wo + 3) * 4 <= blur_cuda.PLANE_SMEM
+    first = np.arange(g["blocks"]) * k
+    count = np.minimum(k, planes - first)
+    assert (count >= 1).all() and count.sum() == planes
+    assert k == 1 or k * ho * wo <= blur_cuda.PLANE_OUTPUTS
+
+
+def _check_strip_geometry(g, planes, ho, wo):
+    rows, cols = g["rows"], blur_cuda.BLUR_COLS
+    assert max(ho, wo) > blur_cuda.PLANE_MAP
+    assert rows in blur_cuda.BLUR_ROWS
+    assert g["threads"] == planes * g["col_groups"] * g["row_strips"] < 2**31
+    # Every CTA of the grid has a live thread; no live thread past the grid.
+    assert (g["blocks"] - 1) * blur_cuda.BLUR_THREADS < g["threads"] <= g["blocks"] * blur_cuda.BLUR_THREADS
+    # Strips and column groups tile the map: each starts inside it and
+    # together they cover each row / column once.
+    assert (g["row_strips"] - 1) * rows < ho <= g["row_strips"] * rows
+    assert (g["col_groups"] - 1) * cols < wo <= g["col_groups"] * cols
+    # The kernel's thread -> tile map over the whole grid: live threads are
+    # exactly the first ``threads``, and they hit each (plane, strip, group)
+    # tile once.
+    t = np.arange(g["blocks"] * blur_cuda.BLUR_THREADS, dtype=np.int32)
+    plane, oy0, ox0 = blur_cuda.blur4_thread_tiles(g, t)
+    live = plane < planes
+    np.testing.assert_array_equal(live, t < g["threads"])
+    assert oy0[live].max() < ho and ox0[live].max() < wo
+    key = (plane[live].astype(np.int64) * g["row_strips"] + oy0[live] // rows) * g["col_groups"] + ox0[live] // cols
+    counts = np.bincount(key, minlength=g["threads"])
+    assert counts.shape == (g["threads"],) and (counts == 1).all()
+    # Pixel by pixel, for the first and the last plane: each output once.
+    for p in (0, planes - 1):
+        cover = np.zeros((ho, wo), np.int32)
+        for y, x in zip(oy0[plane == p], ox0[plane == p]):
+            cover[y : y + rows, x : x + cols] += 1
+        assert (cover == 1).all(), (p, np.unique(cover))
+
+
+@pytest.mark.parametrize("size", MAPS)
+@pytest.mark.parametrize("planes", PLANES)
+def test_blur4_launch_geometry_covers_every_output_once(planes, size):
+    _check_geometry(planes, size, size)
+
+
+@pytest.mark.parametrize("ho,wo", [(257, 9), (8, 256), (1, 129), (35, 3), (33, 34), (1, 1)])
+def test_blur4_launch_geometry_non_square(ho, wo):
+    _check_geometry(4096, ho, wo)
+
+
+def test_blur4_launch_geometry_picks_the_path_by_map():
+    geo = {m: blur_cuda.blur4_launch_geometry(16 * 512, m, m) for m in (8, 9, 16, 17, 24, 25, 32, 35, 64, 257)}
+    # Up to 24 px: whole planes, several a CTA (32 planes of 8x8 outputs).
+    assert all(geo[m]["mode"] == "planes" for m in (8, 9, 16, 17, 24))
+    assert (geo[8]["per_cta"], geo[8]["blocks"]) == (32, 256) and geo[24]["per_cta"] == 3
+    # Larger: strips of the rows that load the fewest input rows per
+    # column — 8 for 35 (5 strips of 11 rows against 3 of 19), 16 else.
+    assert {m: geo[m]["rows"] for m in (25, 32, 35, 64, 257)} == {25: 16, 32: 16, 35: 8, 64: 16, 257: 16}
+
+
+def _nchw_backed(b=4, c=3, h=8, w=6):
+    """An NHWC view of NCHW memory, as the generator returns its images."""
+    x = torch.arange(b * c * h * w, dtype=torch.float32).reshape(b, c, h, w)
+    return x.permute(0, 2, 3, 1)
+
+
+def test_sampler_strides_nhwc_contiguous():
+    img = torch.zeros((2, 8, 6, 3))
+    grid = torch.zeros((2, 4, 5, 2))
+    assert sampler_strides(img, grid) == ((8 * 6 * 3, 6 * 3, 3, 1), (4 * 5 * 2, 2))
+
+
+def test_sampler_strides_nhwc_view_of_nchw_and_batch_slice():
+    img = _nchw_backed()
+    pts = torch.zeros((4, 7, 2))
+    want = ((3 * 8 * 6, 6, 1, 8 * 6), (7 * 2, 2))
+    assert sampler_strides(img, pts[:, :, None, :]) == want
+    # The texture steal's input: a batch slice of G's output, read in place.
+    sl = img[1:]
+    assert sl.data_ptr() == img.data_ptr() + 3 * 8 * 6 * 4 and not sl.is_contiguous()
+    assert sampler_strides(sl, pts[1:, :, None, :]) == want
+    # A batch of one: its batch stride is never stepped.
+    assert sampler_strides(img[2:3], pts[2:3, :, None, :]) == ((0, 6, 1, 8 * 6), (0, 2))
+
+
+@pytest.mark.parametrize("case", [
+    "float64", "five_channels", "rank3", "batch_mismatch", "grid_last_dim", "zero_stride",
+    "grid_channel_stride", "grid_not_walkable", "grid_odd_stride", "grid_misaligned",
+])
+def test_sampler_strides_rejects(case):
+    img, grid = torch.zeros((2, 8, 6, 3)), torch.zeros((2, 4, 5, 2))
+    if case == "float64":
+        img, grid = img.double(), grid.double()
+    elif case == "five_channels":
+        img = torch.zeros((2, 8, 6, 5))
+    elif case == "rank3":
+        img = torch.zeros((2, 48, 3))
+    elif case == "batch_mismatch":
+        grid = torch.zeros((3, 4, 5, 2))
+    elif case == "grid_last_dim":
+        grid = torch.zeros((2, 4, 5, 3))
+    elif case == "zero_stride":
+        img = torch.zeros((1, 8, 6, 3)).expand(2, 8, 6, 3)
+    elif case == "grid_channel_stride":
+        grid = torch.zeros((2, 2, 4, 5)).permute(0, 2, 3, 1)
+    elif case == "grid_not_walkable":
+        grid = torch.zeros((2, 4, 8, 2))[:, :, :5]
+    elif case == "grid_odd_stride":
+        grid = torch.zeros((2, 4, 5, 3))[..., :2]
+    elif case == "grid_misaligned":
+        grid = torch.zeros(2 * 4 * 5 * 2 + 1)[1:].reshape(2, 4, 5, 2)
+    with pytest.raises(ValueError):
+        sampler_strides(img, grid)
+
+
+def test_sampler_strides_never_copies():
+    img = _nchw_backed()[1:]
+    grid = torch.zeros((3, 4, 5, 2))
+    ptrs = img.data_ptr(), grid.data_ptr()
+    sampler_strides(img, grid)
+    assert (img.data_ptr(), grid.data_ptr()) == ptrs and not img.is_contiguous()
+
+
+def test_sample_at_points_on_nchw_view_equals_contiguous():
+    rng = np.random.default_rng(4)
+    img = _nchw_backed(5, 3, 16, 12) / 100.0
+    pts = torch.from_numpy(rng.uniform(-1.1, 1.1, (4, 301, 2)).astype(np.float32))
+    view = img[1:].detach().requires_grad_(True)
+    dense = view.detach().contiguous().requires_grad_(True)
+    assert not view.is_contiguous()
+    got, want = sampling_ops.sample_at_points(view, pts), sampling_ops.sample_at_points(dense, pts)
+    assert torch.equal(got, want)
+    cot = torch.from_numpy(rng.standard_normal((4, 301, 3)).astype(np.float32))
+    (g_view,), (g_dense,) = torch.autograd.grad(got, view, cot), torch.autograd.grad(want, dense, cot)
+    assert torch.equal(g_view, g_dense)
+    # The plain grid_sample agrees on the view too.
+    grid = pts[:, :, None, :]
+    assert torch.equal(shading.grid_sample_bilinear(view.detach(), grid),
+                       shading.grid_sample_bilinear(dense.detach(), grid))

@@ -58,6 +58,51 @@ def test_sampler_kernel_matches_plain(cuda_device):
     assert torch.equal(got, want)
 
 
+def _nchw_images(rng, b, h, w, device):
+    """(B, H, W, 3) float32 NHWC views of NCHW memory, as the generator
+    returns its images."""
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, 3, h, w)).astype(np.float32)).to(device)
+    return x.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("case", ["albedo_nhwc", "nchw_view", "nchw_batch_slice", "nchw_odd_width"])
+def test_sampler_kernel_reads_strided_images(cuda_device, case):
+    rng = np.random.default_rng(2)
+    if case == "albedo_nhwc":
+        img = torch.from_numpy(rng.uniform(0, 1, (3, 64, 48, 3)).astype(np.float32)).to(cuda_device)
+        grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (3, 64, 48, 2)).astype(np.float32)).to(cuda_device)
+    else:
+        img = _nchw_images(rng, 5, 64, 45 if case == "nchw_odd_width" else 48, cuda_device)
+        pts = torch.from_numpy(rng.uniform(-1.1, 1.1, (5, 2001, 2)).astype(np.float32)).to(cuda_device)
+        if case == "nchw_batch_slice":  # the texture steal: G's interpolant rows
+            img, pts = img[2:], pts[2:]
+        grid = pts[:, :, None, :]
+        assert not img.is_contiguous()
+    before = sampler_cuda.grid_sample.launches
+    got = sampler_cuda.grid_sample(img, grid)
+    torch.cuda.synchronize()
+    assert sampler_cuda.grid_sample.launches == before + 1
+    assert torch.equal(got, shading.grid_sample_bilinear(img, grid))
+    assert torch.equal(got, shading.grid_sample_bilinear(img.contiguous(), grid))
+
+
+def test_sampler_kernel_makes_no_copy(cuda_device):
+    rng = np.random.default_rng(3)
+    img = _nchw_images(rng, 16, 256, 256, cuda_device)[1:]
+    grid = torch.from_numpy(rng.uniform(-1, 1, (15, 20000, 1, 2)).astype(np.float32)).to(cuda_device)
+    sampler_cuda.grid_sample(img, grid)  # first launch: builds and loads the library
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(cuda_device)
+    n_alloc, n_bytes = stats["allocation.all.allocated"], stats["allocated_bytes.all.allocated"]
+    out = sampler_cuda.grid_sample(img, grid)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(cuda_device)
+    # One allocation, the output's (rounded up to the caching allocator's
+    # 512-byte blocks): no copy of the 11.8 MB image or the grid.
+    assert stats["allocation.all.allocated"] - n_alloc == 1
+    assert 0 <= stats["allocated_bytes.all.allocated"] - n_bytes - out.numel() * 4 < 512
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flr_kernel_matches_plain(cuda_device, dtype):
     x = torch.randn((8, 512, 33, 33), device=cuda_device).to(dtype)
@@ -81,6 +126,43 @@ def test_blur_kernel_matches_plain(cuda_device, dtype, pads):
     torch.cuda.synchronize()
     assert blur_cuda.blur4.launches == before + 1
     assert torch.equal(got, want)
+
+
+# Kernel 4's paths (ops/blur_cuda.py::blur4_launch_geometry): whole planes
+# (maps up to 24 px), strips with 16-byte row loads (width a multiple of 8,
+# aligned base), strips with scalar loads (odd widths, and a batch slice
+# whose base is off the 16-byte grid), each with aligned and unaligned
+# output rows.
+BLUR_INPUTS = {
+    "planes": (16, 64, 9, 9),
+    "planes_odd": (3, 5, 17, 13),
+    "strips_vec": (2, 32, 64, 64),
+    "strips_vec_tall": (1, 16, 130, 128),
+    "strips_scalar": (2, 16, 65, 67),
+    "strips_wide": (1, 4, 257, 255),
+    "strips_slice": (3, 8, 40, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (2, 2, 2, 2), (1, 2, 1, 2), (0, 3, 0, 3)])
+@pytest.mark.parametrize("path", list(BLUR_INPUTS))
+def test_blur_kernel_paths_match_plain(cuda_device, path, pads, dtype):
+    shape = BLUR_INPUTS[path]
+    x = torch.randn(int(np.prod(shape)) + 3, device=cuda_device).to(dtype)
+    # A contiguous input whose base is 16-byte aligned, or 3 elements past
+    # that (as a slice of a larger buffer may be).
+    x = (x[3:] if path == "strips_slice" else x[:-3]).reshape(shape).requires_grad_(True)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (path == "strips_slice")
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), 4.0)
+    before = blur_cuda.blur4.launches, blur_cuda.blur4_vjp.launches
+    out = blur_cuda.blur4(x, taps, pads)
+    g = torch.randn(out.shape, device=cuda_device).to(dtype)
+    (dx,) = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert (blur_cuda.blur4.launches, blur_cuda.blur4_vjp.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, blur_cuda.blur4_plain(x.detach(), taps[::-1], pads))
+    assert torch.equal(dx, blur_cuda.blur4_plain(g, taps, tuple(3 - p for p in pads)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
