@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 BIG_DEPTH = 1e6
-# Per-face setup table columns (shared with csrc/raster.cu).
+# Per-face setup table columns (csrc/raster.cu computes the same values
+# per face, in the same order).
 N_COEF = 16
 
 

@@ -1,17 +1,21 @@
-"""Kernel 1: the rasterizer with fused attribute interpolation.
+"""Kernel 1: the rasterizer with fused attribute interpolation, binning
+included.
 
 Replaces the TPU kernel ``gif_tpu/render/raster_pallas.py::_raster_group_kernel``
-(reached through ``rasterize_pallas_with_attrs``).  The CUDA source is
-``gif_tpu_torch/csrc/raster.cu``; its header says what bounds it on the
-H100 (f32 ALU work over binned candidates x pixels) and how the design
-meets that (candidates staged once per CTA in shared memory, the winner in
-registers).  Binning and the per-face setup table stay in PyTorch
-(:mod:`gif_tpu_torch.render.raster`), shared with the plain version.
+(reached through ``rasterize_pallas_with_attrs``) and the binning around
+it.  The CUDA source is ``gif_tpu_torch/csrc/raster.cu``; its header says
+what bounds it on the H100 (memory: the per-pixel key buffer and outputs)
+and how the design meets that: bin by ballot into a per-tile bitset, rank
+by prefix popcount, cover face-parallel with a 64-bit ``atomicMax`` of
+(depth, face id) keys, resolve per pixel.  Every size comes from the
+shapes, so the whole call is queued on the stream and never waits on the
+host.
 
 Binning is face-granular (the reference's XLA rasterizer's contract, not
 the Pallas kernel's 32-face chunks): a tile overflows when more than
 ``max_tris_per_tile`` front-facing faces overlap it, and the flag is per
-tile.
+tile.  The plain version (:func:`gif_tpu_torch.render.raster.rasterize_plain`)
+bins with ``bin_faces`` / ``face_table``; the kernel equals it bit for bit.
 
 :func:`morton_face_order` is the JAX package's one-time spatial face
 permutation, kept for callers that want spatially coherent face ids; the
@@ -25,12 +29,13 @@ import numpy as np
 import torch
 
 from gif_tpu_torch import kernels
-from gif_tpu_torch.render.raster import (
-    RasterOutput,
-    bin_faces,
-    face_table,
-    rasterize_plain,
-)
+from gif_tpu_torch.render.raster import RasterOutput, rasterize_plain
+
+# Steps of one call (csrc/raster.cu), one bit each: clear the keys, bin,
+# rank, cover, the listed large walks, resolve.  A call runs them all; a
+# timing may run one at a time.
+STEPS = ("clear", "bin", "ranks", "cover", "wide", "resolve")
+ALL_PASSES = (1 << len(STEPS)) - 1
 
 
 def morton_face_order(faces: np.ndarray, verts: np.ndarray) -> np.ndarray:
@@ -57,44 +62,76 @@ def morton_face_order(faces: np.ndarray, verts: np.ndarray) -> np.ndarray:
 def rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile):
     """Launch the CUDA kernel (CUDA tensors only); same contract as
     :func:`gif_tpu_torch.render.raster.rasterize_plain`."""
-    if h % tile or w % tile or tile * tile > 1024:
+    fv, attrs = kernel_inputs(face_verts_pix, face_attrs, h, w, tile)
+    bufs = raster_buffers(fv, attrs.shape[-1], h, w, tile)
+    launch_kernel(fv, attrs, bufs, max_tris_per_tile, h, w, tile)
+    rast = RasterOutput(bufs["depth"], bufs["tri"], bufs["bary"], bufs["overflow"])
+    return rast, (bufs["attr_img"] if face_attrs is not None else None)
+
+
+def kernel_inputs(face_verts_pix, face_attrs, h, w, tile):
+    """(B, F, 3, 3) corners and (B, F, 3, D) attributes (D = 0 without
+    attributes) as contiguous float32, checked against what the kernel
+    takes."""
+    if h % tile or w % tile or tile > 512:
         raise ValueError(f"image {h}x{w} / tile {tile} not supported by the kernel")
     fv = face_verts_pix.detach().float().contiguous()
+    if fv.ndim != 4 or fv.shape[2:] != (3, 3):
+        raise ValueError(f"faces {tuple(fv.shape)} are not (B, F, 3, 3)")
     b, f = fv.shape[:2]
-    d = 0 if face_attrs is None else face_attrs.shape[-1]
     attrs = (
         torch.zeros((b, f, 3, 0), device=fv.device)
         if face_attrs is None
         else face_attrs.detach().float().contiguous()
     )
-    if attrs.shape[:3] != (b, f, 3):
+    if attrs.ndim != 4 or attrs.shape[:3] != (b, f, 3):
         raise ValueError(f"face_attrs {tuple(attrs.shape)} does not match faces {(b, f)}")
-    ids, counts, overflow = bin_faces(fv, tile, max_tris_per_tile, h, w)
-    depth, tri, bary, attr_img = launch_kernel(face_table(fv), attrs, ids, counts, h, w, tile)
-    rast = RasterOutput(depth, tri, bary, overflow)
-    return rast, (attr_img if face_attrs is not None else None)
+    t = (h // tile) * (w // tile)
+    if max(b * h * w, 8 * b * f, 64 * b * t, b * t * ((f + 31) // 32)) >= 2**31:
+        raise ValueError(f"{b} x {f} faces at {h}x{w} exceed the kernel's 32-bit indexing")
+    return fv, attrs
 
 
-def launch_kernel(tab, attrs, ids, counts, h, w, tile):
-    """The per-pixel kernel alone, on a prepared face table (B, F, 16),
-    corner attributes (B, F, 3, D) and binned ids (B, T, K) / counts
-    (B, T): returns depth, tri_id, bary and the (B, H, W, D) attributes."""
-    b, f = tab.shape[:2]
-    d = attrs.shape[-1]
-    dev = tab.device
-    depth = torch.empty((b, h, w), device=dev)
-    tri = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    bary = torch.empty((b, h, w, 3), device=dev)
-    attr_img = torch.empty((b, h, w, d), device=dev)
-    fn = kernels.function("gif_raster_forward", 8, 7)
+def raster_buffers(fv, d, h, w, tile) -> dict:
+    """Outputs and scratch of one call, allocated without initialisation
+    (the kernel writes every element it reads): keys (B, H, W) int64; per
+    (batch, tile) the membership bitset and prefix counts over ceil(F / 32)
+    words and the candidate count (left unwritten when the capacity is the
+    face count); the list of large walks (a count, a pad
+    word, room for B * F / 4 + 4096 (face, tile) pairs) — one int32
+    allocation."""
+    b, f = fv.shape[:2]
+    rows, words = b * (h // tile) * (w // tile), (f + 31) // 32
+    wide_cap = b * f // 4 + 4096
+    dev = fv.device
+    sizes = [2 * b * h * w, 2 + 2 * wide_cap, rows * words, rows * words, rows]  # 8-byte parts first
+    keys, wide, bits, prefix, counts = torch.split(torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
+    return {
+        "keys": keys, "wide": wide, "wide_cap": wide_cap, "bits": bits, "prefix": prefix, "counts": counts,
+        "depth": torch.empty((b, h, w), device=dev),
+        "tri": torch.empty((b, h, w), dtype=torch.int32, device=dev),
+        "bary": torch.empty((b, h, w, 3), device=dev),
+        "attr_img": torch.empty((b, h, w, d), device=dev),
+        "overflow": torch.empty((b, rows // b), dtype=torch.bool, device=dev),
+    }
+
+
+def launch_kernel(fv, attrs, bufs, max_tris_per_tile, h, w, tile, passes=ALL_PASSES):
+    """Queue the steps ``passes`` selects (a bit per entry of ``STEPS``) on
+    the current stream, on the prepared inputs and buffers; every step reads
+    what the earlier ones left in ``bufs``."""
+    b, f = fv.shape[:2]
+    fn = kernels.function("gif_raster_forward", 12, 9)
     err = fn(
-        tab.data_ptr(), attrs.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-        depth.data_ptr(), tri.data_ptr(), bary.data_ptr(), attr_img.data_ptr(),
-        b, f, ids.shape[2], h, w, tile, d, kernels.stream_ptr(tab),
+        fv.data_ptr(), attrs.data_ptr(), bufs["keys"].data_ptr(), bufs["bits"].data_ptr(),
+        bufs["prefix"].data_ptr(), bufs["counts"].data_ptr(), bufs["wide"].data_ptr(), bufs["depth"].data_ptr(),
+        bufs["tri"].data_ptr(), bufs["bary"].data_ptr(), bufs["attr_img"].data_ptr(),
+        bufs["overflow"].data_ptr(), b, f, min(max_tris_per_tile, f), h, w, tile,
+        attrs.shape[-1], bufs["wide_cap"], passes, kernels.stream_ptr(fv),
     )
     kernels.check(err, "gif_raster_forward")
-    rasterize_with_attrs.launches += 1
-    return depth, tri, bary, attr_img
+    if passes == ALL_PASSES:
+        rasterize_with_attrs.launches += 1
 
 
 def rasterize_with_attrs(

@@ -1,9 +1,10 @@
-"""What the port's kernels 2 and 4 are launched with, checked on the CPU.
+"""What the port's kernels 2, 4 and 6 are launched with, checked on the CPU.
 
 The CUDA kernels run only on a card; the geometry and argument helpers
 around them are pure Python, so the launch of kernel 4 (which thread walks
-which strip of which plane) and kernel 2's stride arguments (read in
-place, never copied) are held here at the main path's shapes.
+which strip of which plane), kernel 2's stride arguments (read in place,
+never copied) and kernel 6's image windows (one CTA each, every pixel in
+exactly one) are held here at the main path's shapes.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 from gif_tpu_torch.ops import blur_cuda
 from gif_tpu_torch.render import sampling_ops, shading
 from gif_tpu_torch.render.sampler_cuda import sampler_strides
+from gif_tpu_torch.render.scatter_cuda import WINDOW_BYTES, scatter_launch_geometry
 
 # Planes of the main path: batch x channels of the run_id-8 step (16),
 # the fused run_id-0 G forward (31) and a served batch (8), at 512 and 128
@@ -176,3 +178,116 @@ def test_sample_at_points_on_nchw_view_equals_contiguous():
     grid = pts[:, :, None, :]
     assert torch.equal(shading.grid_sample_bilinear(view.detach(), grid),
                        shading.grid_sample_bilinear(dense.detach(), grid))
+
+
+# Kernel 6's images: the run_id-0 steal's gradient (15 rows of 256 x 256 x
+# 3), the card tests' shapes, and rows too wide for one window.
+SCATTER_IMAGES = [(15, 256, 256, 3), (3, 64, 48, 3), (2, 256, 256, 3), (1, 7, 9, 2), (1, 5, 10000, 3),
+                  (4, 3, 40000, 1), (200, 16, 16, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,c", SCATTER_IMAGES)
+@pytest.mark.parametrize("n_sm", [132, 1])
+def test_scatter_launch_geometry_covers_every_pixel_once(b, h, w, c, n_sm):
+    g = scatter_launch_geometry(b, h, w, c, n_sm)
+    rows, cols = g["win_rows"], g["win_cols"]
+    assert g["smem_bytes"] == 4 * rows * cols * c <= WINDOW_BYTES
+    cover = np.zeros((h, w), np.int32)
+    for i in range(g["n_row_windows"] * g["n_col_windows"]):  # the kernel's blockIdx.x -> window
+        y_lo, x_lo = i // g["n_col_windows"] * rows, i % g["n_col_windows"] * cols
+        assert y_lo < h and x_lo < w  # no empty window
+        cover[y_lo : y_lo + rows, x_lo : x_lo + cols] += 1
+    assert (cover == 1).all()
+    n_cta = b * g["n_row_windows"] * g["n_col_windows"]
+    # About one CTA per SM: at least half of them busy where the image has
+    # the rows for it, and no more windows than that takes unless the
+    # window is full.
+    assert n_cta >= min(n_sm, b * h * g["n_col_windows"]) / 2
+    assert n_cta < n_sm + b * g["n_col_windows"] or rows == 1 or g["smem_bytes"] + 4 * cols * c > WINDOW_BYTES
+
+
+def _scatter_by_windows(g, pts, h, w, geo):
+    """csrc/scatter.cu's two steps in torch: list each point under the
+    windows its valid taps land in, then let each window add the taps of its
+    listed points that lie inside it."""
+    b, p, c = g.shape
+    rows, cols, n_col = geo["win_rows"], geo["win_cols"], geo["n_col_windows"]
+    gx = (pts[..., 0] + 1.0) * (w * 0.5) - 0.5
+    gy = (pts[..., 1] + 1.0) * (h * 0.5) - 0.5
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    dx, dy = gx - x0, gy - y0
+    taps = []
+    for k in range(4):
+        ty, tx = y0 + (k >> 1), x0 + (k & 1)
+        ok = (ty >= 0) & (ty <= h - 1) & (tx >= 0) & (tx <= w - 1)
+        wt = (dy if k >> 1 else 1 - dy) * (dx if k & 1 else 1 - dx)
+        win = torch.where(ok, (ty // rows) * n_col + tx // cols, -1).long()
+        taps.append((ty, tx, ok, wt, win))
+    out = torch.full((b, h, w, c), float("nan"))
+    for i in range(geo["n_row_windows"] * n_col):
+        y_lo, x_lo = i // n_col * rows, i % n_col * cols
+        r, q = min(rows, h - y_lo), min(cols, w - x_lo)
+        listed = torch.stack([t[4] == i for t in taps]).any(0)  # step 1: this window's list
+        acc = torch.zeros((b, r * q, c))
+        for ty, tx, ok, wt, _ in taps:
+            inside = listed & ok & (ty >= y_lo) & (ty < y_lo + r) & (tx >= x_lo) & (tx < x_lo + q)
+            idx = torch.where(inside, (ty - y_lo) * q + (tx - x_lo), 0).long()
+            acc.scatter_add_(1, idx[..., None].expand(-1, -1, c), torch.where(inside[..., None], wt[..., None] * g, 0.0))
+        out[:, y_lo : y_lo + r, x_lo : x_lo + q] = acc.reshape(b, r, q, c)
+    return out
+
+
+@pytest.mark.parametrize("b,p,h,w,c,n_sm", [(3, 2001, 64, 48, 3, 132), (2, 777, 33, 40, 3, 7), (1, 50, 7, 9, 2, 132),
+                                           (2, 500, 6, 9000, 3, 4)])
+def test_scatter_windows_sum_to_the_plain_scatter(b, p, h, w, c, n_sm):
+    """Every valid tap lands in exactly one window, and the windows'
+    sums make the plain scatter; points outside the image add nothing."""
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-1.2, 1.2, (b, p, 2)).astype(np.float32)
+    pts[:, -4:] = np.array([[-1, -1], [1, 1], [-1, 1], [1 - 1e-7, -1]], np.float32)
+    pts, g = torch.from_numpy(pts), torch.from_numpy(rng.standard_normal((b, p, c)).astype(np.float32))
+    geo = scatter_launch_geometry(b, h, w, c, n_sm)
+    got = _scatter_by_windows(g, pts, h, w, geo)
+    want = sampling_ops.scatter_bilinear_plain(g, pts, h, w)
+    assert not bool(got.isnan().any())
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
+
+
+def _c_entry_points():
+    """name -> (pointers without the stream, ints, floats) of every
+    ``extern "C"`` entry point in gif_tpu_torch/csrc."""
+    import re
+
+    from gif_tpu_torch import kernels
+
+    out = {}
+    for src in kernels.SOURCES:
+        text = (kernels.CSRC / src).read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = [p.strip().rsplit(" ", 1)[0] for p in params.split(",")]
+            assert kinds[-1] == "void*", (name, "the stream comes last")
+            kinds = kinds[:-1]
+            out[name] = (sum("void*" in k for k in kinds), kinds.count("int"), kinds.count("float"))
+            assert sum(out[name]) == len(kinds), (name, kinds)
+    return out
+
+
+def test_ctypes_declarations_match_the_c_entry_points():
+    """Every ``kernels.function(name, n_ptrs, n_ints[, n_floats])`` in the
+    package declares the C function's own argument list (a mismatch only
+    shows on the card, as a TypeError or a garbled launch)."""
+    import re
+    from pathlib import Path
+
+    from gif_tpu_torch import kernels
+
+    entries = _c_entry_points()
+    declared = {}
+    for path in Path(kernels.__file__).parent.rglob("*.py"):
+        for name, args in re.findall(r'kernels\.function\(\s*"(\w+)",\s*([\d,\s]+)\)', path.read_text()):
+            n = [int(a) for a in args.replace(" ", "").split(",") if a]
+            declared[name] = tuple(n + [0] * (3 - len(n)))
+    assert declared and set(declared) == set(entries)
+    for name, sig in declared.items():
+        assert sig == entries[name], (name, sig, entries[name])

@@ -46,6 +46,81 @@ def test_raster_kernel_matches_plain(cuda_device, cap):
     assert torch.equal(got_img, want_img)
 
 
+def _raster_case(case, rng):
+    """(faces, attrs, h, w, tile, caps) of one bit-equality case."""
+    h = w = 128
+    if case == "z_ties":  # duplicated faces under other ids: the lowest id wins
+        base = _random_faces(rng, 2, 200, h, w)
+        fv = np.concatenate([base, base[:, ::-1], base], axis=1)
+    elif case == "degenerate_backfacing":
+        fv = _random_faces(rng, 2, 600, h, w)
+        fv[:, :150] = fv[:, :150, [0, 2, 1]]
+        line = np.linspace(0, 1, 3, dtype=np.float32)[:, None]
+        fv[:, 150:200, :, :2] = fv[:, 150:200, :1, :2] + line * (fv[:, 150:200, 1:2, :2] - fv[:, 150:200, :1, :2])
+        fv[:, 200:220, :, :2] = fv[:, 200:220, :1, :2]
+    elif case == "near_integer":  # corners one ulp either side of integer pixels
+        fv = _random_faces(rng, 2, 800, h, w)
+        fv[..., :2] = np.round(fv[..., :2] / 3.0)
+        fv[..., :2] = fv[..., :2] * 3.0
+        toward = np.where(rng.integers(0, 2, fv[..., :2].shape) == 1, np.inf, -np.inf).astype(np.float32)
+        fv[..., :2] = np.where(rng.integers(0, 3, fv[..., :2].shape) == 0, fv[..., :2],
+                               np.nextafter(fv[..., :2], toward))
+    elif case == "slivers":  # nearly collinear corners: rounding draws them far off
+        p0 = rng.uniform(8, h - 8, size=(2, 1500, 2))
+        d = rng.normal(size=(2, 1500, 2)) * rng.choice([0.3, 3.0, 20.0], size=(2, 1500, 1))
+        off = rng.normal(size=(2, 1500, 2)) * 10.0 ** rng.uniform(-7, 0, size=(2, 1500, 1))
+        xy = np.stack([p0, p0 + d, p0 + rng.uniform(0.2, 1, (2, 1500, 1)) * d + off], axis=2)
+        fv = np.concatenate([xy, rng.uniform(1, 4, (2, 1500, 3, 1))], axis=-1)
+    elif case == "crowded_tile":  # 3000 small faces in one 32 x 32 tile
+        centers = rng.uniform(34, 62, size=(1, 3000, 1, 2))
+        xy = centers + rng.uniform(-2, 2, size=(1, 3000, 3, 2))
+        fv = np.concatenate([xy, rng.uniform(1, 20, (1, 3000, 3, 1))], axis=-1)
+    else:  # "large": 24-px faces over a 256-px image
+        h = w = 256
+        fv = _random_faces(rng, 3, 1500, h, w)
+    fv = fv.astype(np.float32)
+    attrs = rng.standard_normal(fv.shape[:2] + (3, 5)).astype(np.float32)
+    return fv, attrs, h, w, 32, [fv.shape[1], 16]
+
+
+@pytest.mark.parametrize("case", ["z_ties", "degenerate_backfacing", "near_integer", "slivers", "crowded_tile",
+                                  "large"])
+def test_raster_kernel_bit_equal_cases(cuda_device, case):
+    fv_np, attrs_np, h, w, tile, caps = _raster_case(case, np.random.default_rng(10))
+    fv = torch.from_numpy(fv_np).to(cuda_device)
+    attrs = torch.from_numpy(attrs_np).to(cuda_device)
+    for cap in caps:
+        got, got_img = raster_cuda.rasterize_with_attrs(fv, attrs, h, w, tile, cap)
+        want, want_img = raster.rasterize_plain(fv, attrs, h=h, w=w, tile=tile, max_tris_per_tile=cap)
+        torch.cuda.synchronize()
+        for a, b, name in zip((*got, got_img), (*want, want_img), ("depth", "tri_id", "bary", "overflow", "attrs")):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case, cap, name)
+    if case == "crowded_tile":
+        ids, counts, _ = raster.bin_faces(fv, tile, fv.shape[1], h, w)
+        assert int(counts.max()) > 1024
+    if case == "z_ties":
+        assert int(want.tri_id.max()) < 400  # under cap 16 too: the third copy never wins
+
+
+def test_raster_kernel_call_never_syncs(cuda_device):
+    """The whole call — binning included — is queued on the stream: no
+    host-device synchronization, so it runs under sync debug mode "error"."""
+    rng = np.random.default_rng(11)
+    fv = torch.from_numpy(_random_faces(rng, 4, 2000, 256, 256)).to(cuda_device)
+    attrs = torch.from_numpy(rng.standard_normal((4, 2000, 3, 5)).astype(np.float32)).to(cuda_device)
+    raster_cuda.rasterize_with_attrs(fv, attrs, 256, 256, 32, 128)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = raster_cuda.rasterize_with_attrs.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_img = raster_cuda.rasterize_with_attrs(fv, attrs, 256, 256, 32, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_img = raster.rasterize_plain(fv, attrs, h=256, w=256, tile=32, max_tris_per_tile=128)
+    assert raster_cuda.rasterize_with_attrs.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(got_img, want_img)
+
+
 def test_sampler_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(1)
     img = torch.from_numpy(rng.uniform(0, 1, (4, 256, 256, 3)).astype(np.float32)).to(cuda_device)
@@ -201,19 +276,30 @@ def test_blur_vjp_kernel_matches_plain(cuda_device, dtype, pads):
     assert dx.shape == x.shape and torch.equal(dx, want)
 
 
-def _scatter_points(rng, b, p, h, w):
+def _scatter_points(rng, b, p, h, w, layout="mixed"):
     """Points over [-1.2, 1.2]^2 (some outside the image), a third of them
-    on one texel (contention), and the corners and edges exactly."""
+    on one texel (contention), and the corners and edges exactly; or all
+    in one 8 x 8 pixel region ("clustered"), spread over the image
+    ("spread"), or all outside it ("outside")."""
+    if layout == "clustered":
+        px = rng.uniform(0, 8, (b, p, 2)) + np.array([w // 3, h // 2])
+        return (2 * (px + 0.5) / np.array([w, h]) - 1).astype(np.float32)
+    if layout == "spread":
+        return rng.uniform(-1, 1, (b, p, 2)).astype(np.float32)
+    if layout == "outside":
+        return (rng.choice([-1, 1], (b, p, 2)) * rng.uniform(1 + 2.0 / min(h, w), 3, (b, p, 2))).astype(np.float32)
     pts = rng.uniform(-1.2, 1.2, (b, p, 2)).astype(np.float32)
     pts[:, : p // 3] = (2 * (np.array([5.5, 3.5]) + 0.25) / np.array([w, h]) - 1).astype(np.float32)
     pts[:, -4:] = np.array([[-1, -1], [1, 1], [-1, 1], [1 - 1e-7, -1]], np.float32)
     return pts
 
 
-@pytest.mark.parametrize("b,p,h,w,c", [(3, 20001, 64, 48, 3), (2, 777, 256, 256, 3), (1, 5, 7, 9, 2)])
-def test_scatter_kernel_matches_plain(cuda_device, b, p, h, w, c):
+@pytest.mark.parametrize("layout", ["mixed", "clustered", "spread", "outside"])
+@pytest.mark.parametrize("b,p,h,w,c", [(3, 20001, 64, 48, 3), (2, 777, 256, 256, 3), (1, 5, 7, 9, 2),
+                                       (15, 20000, 256, 256, 3)])
+def test_scatter_kernel_matches_plain(cuda_device, b, p, h, w, c, layout):
     rng = np.random.default_rng(5)
-    pts = torch.from_numpy(_scatter_points(rng, b, p, h, w)).to(cuda_device)
+    pts = torch.from_numpy(_scatter_points(rng, b, p, h, w, layout)).to(cuda_device)
     g = torch.from_numpy(rng.standard_normal((b, p, c)).astype(np.float32)).to(cuda_device)
     before = scatter_cuda.scatter_bilinear.launches
     got = scatter_cuda.scatter_bilinear(g, pts, h, w)
@@ -223,6 +309,8 @@ def test_scatter_kernel_matches_plain(cuda_device, b, p, h, w, c):
     assert got.shape == (b, h, w, c) and got.dtype == torch.float32
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
+    if layout == "outside":
+        assert not bool(got.any())  # every element written, and zero
 
 
 def test_sample_at_points_launches_kernels_2_and_6(cuda_device):
