@@ -55,7 +55,28 @@ Phases (each raises on failure; nothing is caught):
     bf16 policy's to the f32 one;
 12. hold one tiny run_id-8 and one tiny run_id-0 train step on the card to
     the CPU plain path (metrics and the G and D gradients from one state;
-    the interpolation draws injected).
+    the interpolation draws injected), then one tiny run_id-8 step of each
+    branch — path length, direct gradient, embedding regularizer, shuffled
+    negatives, instance noise — and one crop + flip step (draws injected;
+    the gradients the step hands Adam);
+13. the regularized run_id-8 step at the same full width, batch 16: path
+    length, embedding regularizer (``EMB_REG``), shuffled-condition
+    negatives, instance noise 0.05, crop / flip batches rendered from
+    ``flame_render``; one recorded warm-up R1 step (every launch, the
+    double backward's included, held to its plain version), 3 counted
+    steps from step 13 (R1 on the third) checking losses, ``pl_mean``,
+    parameter movement and launches; step times, images/s, peak memory;
+    the path-length term alone (CUDA events: forward, parameter backward)
+    and a profile of its parameter backward;
+14. the fused run_id-0 step with the direct gradient regularizer and the
+    adaptive interpolation scale, the same way (``g_total = g_loss + rest +
+    interp``, ``interp = 0.25 (g_loss + rest)``), and the direct-gradient
+    term alone;
+15. the render's gradient at the served shapes (batch 8, 256 px) with
+    respect to the texture and light codes and the face attributes,
+    through kernels 1, 2 and 6 (counted; every launch held to its plain
+    version) against the plain versions on the card, and kernel 6 timed at
+    the albedo lookup's shape.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -74,8 +95,11 @@ is the union of its device events' intervals over the host clock.
 
 The last lines are one JSON object with a record per kernel (``launches``:
 the counted run_id-8 train steps'; ``serve.launches``: the counted served
-requests'; ``run_id0.launches``: the counted run_id-0 steps'), the card's
-name and power limit as nvidia-smi reports them, and the result line.
+requests'; ``run_id0.launches``: the counted run_id-0 steps';
+``run_id8_reg``, ``run_id0_direct`` and ``render_grad``: phases 13-15's
+counted launches; kernel 6's ``albedo``: its numbers at the albedo
+lookup's gradient), the card's name and power limit as nvidia-smi reports
+them, and the result line.
 """
 
 from __future__ import annotations
@@ -809,7 +833,6 @@ def time_r1_parts(state, batch, cfg, res) -> None:
     of R1's parameter backward (the double backward) alone; then a profile
     of the last, naming the ops that launched its slowest kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gif_tpu_torch.device import second_order_safe
     from gif_tpu_torch.train import losses
@@ -839,13 +862,24 @@ def time_r1_parts(state, batch, cfg, res) -> None:
     log(f"phase r1 parts (full-width D, batch {TRAIN_BATCH}, CUDA events, median of 3): D loss "
         f"forward + parameter backward {t_d:.2f} ms; R1 forward (D(real) + input gradient, graph "
         f"kept) {t_fwd:.2f} ms; R1 parameter backward (double backward) {t_bwd:.2f} ms")
+    profile_by_op(r1_backward, "phase r1 profile: R1's parameter backward alone")
+    del r1
+
+
+def profile_by_op(fn, what: str) -> None:
+    """One call of ``fn`` under torch.profiler: device busy share, the
+    kernels that take the device time, and the ops that launched the
+    slowest of them (with their input shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
-        r1_backward()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    log_profile(prof, wall, "phase r1 profile: R1's parameter backward alone")
+    log_profile(prof, wall, what)
     by_op = {}
     for e in prof.events():
         for k in getattr(e, "kernels", []):
@@ -854,7 +888,6 @@ def time_r1_parts(state, batch, cfg, res) -> None:
             by_op[key] = (ms + k.duration / 1e3, n + 1)
     for (op, shapes, kernel), (ms, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms:8.3f} ms  x{n:<3d} {op} {shapes} -> {kernel}")
-    del r1
 
 
 class plain_kernels:
@@ -987,7 +1020,7 @@ def check_train_against_cpu_plain(run_id: int):
 
             def interp_fn():
                 return L.interp_penalty_from_images(res, fake_live[4:], flm.to(d), draws["interp_pairs"], frm)
-        _, _, gg = g_loss_and_grads(st.generator, st.discriminator, fake_live, cond, interp_fn)
+        _, _, _, gg, _ = g_loss_and_grads(st.generator, st.discriminator, fake_live, cond, interp_fn)
         grads[d] = [t.cpu() for t in (*dg, *gg)]
         st.step = 1  # (1 + 1) % 2 == 0: R1 fires
         _, m = make_train_step(cfg, res, device=d, max_tris_per_tile=res.n_faces)(st, b, draws)
@@ -1097,6 +1130,374 @@ def time_interp_penalty(res, cfg, batch) -> None:
     t_all = event_ms(lambda: torch.autograd.grad(forward(), images))
     log(f"phase interp penalty alone ({n} images of {cfg.max_size} px, {len(res.texture_x_coords)} texels, "
         f"CUDA events, median of 3): forward {t_fwd:.3f} ms, forward + image gradient {t_all:.3f} ms")
+
+
+# The regularized run_id-8 phase's embedding regularizer weight (no preset
+# sets one; the L2 norm of the 8-layer mapping net is ~1.5e6, so this makes
+# the term ~150, a large share of G's loss, and its gradient visible).
+EMB_REG = 1e-4
+# The data pipeline's crop range (gif_tpu/data/pipeline.py crop_max_in_px).
+CROP_MAX_PX = 10
+
+
+def augment_batch(batch: dict, seed: int = 0) -> dict:
+    """The pipeline's augmentation on a train batch: crops uniform in
+    [-10, 10] px, flips with p = 0.5, the true fit as ``flame_render`` and
+    the label's flipped rows set to the sentinel."""
+    import torch
+
+    from gif_tpu_torch.data.augment import FLIPPED_LABEL_SENTINEL
+
+    n, dev = batch["flame"].shape[0], batch["flame"].device
+    rng = np.random.default_rng(seed + 100)
+    flip = torch.as_tensor(rng.uniform(size=n) < 0.5, device=dev)
+    label = batch["flame"].clone()
+    label[flip] = FLIPPED_LABEL_SENTINEL
+    return {**batch, "flame": label, "flame_render": batch["flame"], "flip": flip,
+            "crop": torch.as_tensor(rng.integers(-CROP_MAX_PX, CROP_MAX_PX + 1, (n, 2)), device=dev)}
+
+
+def record_warmup(step, state, batch, kernels, what: str):
+    """One warm-up R1 step under LaunchRecorder: every launch held to its
+    plain version on the spot (the double backward's included).  Returns
+    (state, metrics, {kind: launches}, {kind: max_abs_err})."""
+    state.step = 15  # r1_interval 16: (15 + 1) % 16 == 0
+    t0 = time.perf_counter()
+    with LaunchRecorder() as rec:
+        state, m = step(state, batch)
+        m = {k: v.item() for k, v in m.items()}
+    n = {k: sum(r["n"] for r in rec.rounds[0][k].values()) for k in KERNELS}
+    errs = {k: v["max_abs_err"] for k, v in rec.stats.items() if v}
+    log(f"phase {what} warm-up (R1) step incl. the on-the-spot checks of every kernel launch: "
+        f"{time.perf_counter() - t0:.2f} s; metrics {m}; launches held to their plain versions {n}; "
+        f"max_abs_err {errs}")
+    assert m["r1"] > 0 and len(rec.rounds) == 1, (m, len(rec.rounds))
+    assert all(n[k] > 0 for k in kernels), n
+    return state, m, n, errs
+
+
+def log_train_steps(steps, cfg, peak, moved, launches, what: str, smi: str) -> None:
+    """Step times without and with R1, images/s over the r1_interval
+    schedule and peak memory of counted steps."""
+    t_plain = float(np.median([dt for i, dt, _, _ in steps if (i + 1) % cfg.r1_interval != 0]))
+    t_r1 = next(dt for i, dt, _, _ in steps if (i + 1) % cfg.r1_interval == 0)
+    log(f"phase {what}: {len(steps)} counted steps at batch {TRAIN_BATCH}: without R1 median "
+        f"{1e3 * t_plain:.2f} ms ({TRAIN_BATCH / t_plain:.1f} images/s), with R1 {1e3 * t_r1:.2f} ms "
+        f"({TRAIN_BATCH / t_r1:.1f} images/s); over the r1_interval {cfg.r1_interval} schedule "
+        f"{TRAIN_BATCH * cfg.r1_interval / ((cfg.r1_interval - 1) * t_plain + t_r1):.1f} images/s; "
+        f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) of "
+        f"{torch_total_gib():.1f} GiB; parameter movement {moved}; launches {launches}; on {smi}")
+
+
+def torch_total_gib() -> float:
+    import torch
+
+    return torch.cuda.get_device_properties(0).total_memory / 2**30
+
+
+def time_reg_term(name: str, forward, params) -> None:
+    """CUDA-event times of a G regularizer term alone — its forward (with
+    its own create_graph backward) and its parameter backward (the double
+    backward) — and a profile of that backward naming its slowest kernels."""
+    import torch
+
+    t_fwd = event_ms(forward)
+    loss = forward()
+
+    def backward():
+        torch.autograd.grad(loss, params, retain_graph=True, materialize_grads=True)
+
+    t_bwd = event_ms(backward)
+    log(f"phase {name} term alone (full-width G, batch {TRAIN_BATCH}, CUDA events, median of 3): forward "
+        f"(G forward and its create_graph backward) {t_fwd:.2f} ms; parameter backward (double backward) "
+        f"{t_bwd:.2f} ms")
+    profile_by_op(backward, f"phase {name} profile: the term's parameter backward alone")
+    del loss
+
+
+def train_regularized(res, counters: dict, smi: str):
+    """Phase 13: the run_id-8 step at full width with every branch of the
+    D phase and G's path-length and embedding regularizers: shuffled
+    negatives, instance noise, crop / flip batches rendered from
+    ``flame_render``.  One recorded warm-up R1 step; 3 counted steps from
+    step 13 (R1 on the third); the path-length term timed alone.  Returns
+    (counted launches, warm-up launches, max_abs_err by kernel)."""
+    import torch
+
+    from gif_tpu_torch.train import losses as L
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step, render_condition_maps
+
+    t0 = time.perf_counter()
+    cfg = get_config(8, batch_size=TRAIN_BATCH, gen_reg_type="path_len_reg", embedding_reg_weight=EMB_REG,
+                     shfld_cond_as_neg_smpl=True, d_input_noise_std=0.05)
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces, generator=torch.Generator().manual_seed(0))
+    batch = augment_batch(train_batch(cfg, TRAIN_BATCH, "cuda"))
+    log(f"phase regularized run_id-8 setup: {cfg.max_size} px, max_channels {cfg.max_channels}, "
+        f"{cfg.compute_dtype}, batch {TRAIN_BATCH} (D's fakes 2 x {TRAIN_BATCH} rows), gen_reg_type "
+        f"{cfg.gen_reg_type}, embedding_reg_weight {cfg.embedding_reg_weight}, shfld_cond_as_neg_smpl "
+        f"{cfg.shfld_cond_as_neg_smpl}, d_input_noise_std {cfg.d_input_noise_std}, crops in "
+        f"[-{CROP_MAX_PX}, {CROP_MAX_PX}] px, {int(batch['flip'].sum())} of {TRAIN_BATCH} flipped: "
+        f"{time.perf_counter() - t0:.2f} s")
+    state, _, warm, errs = record_warmup(step, state, batch, RUN8_KERNELS, "regularized run_id-8")
+
+    state.step = 13
+    pl0 = state.pl_mean.item()
+    steps, launches, peak, moved = run_train_steps(step, state, batch, counters)
+    for i, dt, m, n in steps:
+        log(f"  regularized run_id-8 step {i}: {1e3 * dt:.2f} ms host clock (synchronized), metrics {m}, "
+            f"launches {n}")
+    for i, dt, m, _ in steps:
+        assert all(np.isfinite(v) for v in m.values()), (i, m)
+        assert (m["r1"] > 0) == ((i + 1) % cfg.r1_interval == 0), (i, m)
+        assert m["render_overflow"] == 0.0 and m["g_total"] > m["g_loss"], (i, m)
+    pl1 = state.pl_mean.item()
+    log(f"  pl_mean {pl0:.6g} -> {pl1:.6g} over the counted steps")
+    assert np.isfinite(pl1) and pl1 != pl0, (pl0, pl1)
+    assert all(moved[k] > 0 for k in moved) and moved["g_ema"] < moved["generator"], moved
+    assert all(launches[KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), \
+        f"a kernel never launched in the regularized steps: {launches}"
+    log_train_steps(steps, cfg, peak, moved, launches, "regularized run_id-8 train", smi)
+
+    gen = state.generator
+    with torch.no_grad():
+        cond = render_condition_maps(res, batch["flame_render"], cfg, res.n_faces)
+    rng = torch.Generator().manual_seed(1)
+    z = torch.randn((TRAIN_BATCH, 512), generator=rng).cuda()
+    noise = torch.randn((TRAIN_BATCH, cfg.max_size, cfg.max_size, 3), generator=rng).cuda()
+
+    def ppl():
+        return L.path_length_penalty(lambda zz: gen(cond, z=zz, step=cfg.max_step), z, state.pl_mean,
+                                     noise=noise)[0]
+
+    time_reg_term("path-length", ppl, list(gen.parameters()))
+    del state, step, batch
+    return launches, warm, errs
+
+
+def train_run_id0_direct(res, counters: dict, smi: str):
+    """Phase 14: the fused run_id-0 step with the direct gradient
+    regularizer and the adaptive interpolation scale at full width: one
+    recorded warm-up R1 step, 3 counted steps from step 13 checking
+    ``g_total = g_loss + rest + interp`` with ``interp = 0.25 (g_loss +
+    rest)``, and the direct-gradient term timed alone.  Returns (counted
+    launches, warm-up launches, max_abs_err by kernel)."""
+    import torch
+
+    from gif_tpu_torch.train import losses as L
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step, render_condition_maps
+
+    t0 = time.perf_counter()
+    cfg = get_config(0, batch_size=TRAIN_BATCH, gen_reg_type="direct_grad_reg", adaptive_interp_loss=True)
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces, generator=torch.Generator().manual_seed(0))
+    batch = train_batch(cfg, TRAIN_BATCH, "cuda")
+    log(f"phase direct-grad run_id-0 setup: fused interpolation loss over {2 * TRAIN_BATCH - 1} G rows, "
+        f"gen_reg_type {cfg.gen_reg_type}, adaptive_interp_loss {cfg.adaptive_interp_loss}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    state, _, warm, errs = record_warmup(step, state, batch, list(KERNELS), "direct-grad run_id-0")
+
+    state.step = 13
+    steps, launches, peak, moved = run_train_steps(step, state, batch, counters)
+    for i, dt, m, n in steps:
+        rest = m["g_total"] - m["g_loss"] - m["interp"]
+        log(f"  direct-grad run_id-0 step {i}: {1e3 * dt:.2f} ms host clock (synchronized), metrics {m}, "
+            f"rest = g_total - g_loss - interp = {rest:.6g}, launches {n}")
+        assert all(np.isfinite(v) for v in m.values()), (i, m)
+        assert (m["r1"] > 0) == ((i + 1) % cfg.r1_interval == 0), (i, m)
+        assert m["render_overflow"] == 0.0 and m["interp"] > 0 and rest >= -1e-6 * m["g_total"], (i, m)
+        # interp = 0.25 (g_loss + rest) with g_total = g_loss + rest + interp.
+        assert abs(m["interp"] - 0.25 * (m["g_loss"] + rest)) <= 1e-5 * m["g_total"], (i, m)
+        assert n["raster"] == 1 and n["sampler"] == 2 and n["bilinear_scatter"] >= 1, (i, n)
+    assert all(moved[k] > 0 for k in moved) and moved["g_ema"] < moved["generator"], moved
+    assert all(n > 0 for n in launches.values()), f"a kernel never launched in the direct-grad steps: {launches}"
+    log_train_steps(steps, cfg, peak, moved, launches, "direct-grad run_id-0 train", smi)
+
+    gen = state.generator
+    with torch.no_grad():
+        cond = render_condition_maps(res, batch["flame"], cfg, res.n_faces)
+
+    def direct():
+        return 8e-8 * L.direct_grad_penalty(
+            lambda c: gen(c, input_indices=batch["indices"], step=cfg.max_step), cond)
+
+    time_reg_term("direct-grad", direct, list(gen.parameters()))
+    del state, step, batch
+    return launches, warm, errs
+
+
+class plain_render:
+    """Route kernels 1, 2 and 6's launchers to their plain versions on CUDA
+    tensors (the autograd Functions around them stay)."""
+
+    def __enter__(self):
+        from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, sampling_ops, scatter_cuda, shading
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (raster_cuda, "rasterize_cuda"), (sampler_cuda, "grid_sample_cuda"),
+            (scatter_cuda, "scatter_bilinear_cuda"))]
+        raster_cuda.rasterize_cuda = lambda fv, a, h, w, tile, cap: raster.rasterize_plain(
+            fv, a, h=h, w=w, tile=tile, max_tris_per_tile=cap)
+        sampler_cuda.grid_sample_cuda = shading.grid_sample_bilinear
+        scatter_cuda.scatter_bilinear_cuda = sampling_ops.scatter_bilinear_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def render_grads(res, flame, weights):
+    """Gradients of ``sum(textured * w_t) + sum(normal * w_n)`` of one
+    render of ``flame`` with respect to the texture code, the light code
+    and the (B, F, 3, 5) face attributes (normals and UVs) the renderer
+    hands the rasterizer."""
+    import torch
+
+    from gif_tpu_torch import constants as cnst
+    from gif_tpu_torch.render import renderer
+
+    captured = {}
+    orig = renderer.rasterize_with_attrs
+
+    def capture(fv, attrs, *args):
+        captured["attrs"] = attrs.detach().requires_grad_(True)
+        return orig(fv, captured["attrs"], *args)
+
+    (t0, t1), (l0, l1), (c0, c1) = (cnst.DECA_IDX[k] for k in ("tex", "lit", "cam"))
+    tex = flame[:, t0:t1].clone().requires_grad_(True)
+    lit = flame[:, l0:l1].reshape(-1, 9, 3).clone().requires_grad_(True)
+    renderer.rasterize_with_attrs = capture
+    try:
+        maps = renderer.render_tex_and_normal(res, flame[:, :100], flame[:, 100:150], flame[:, 150:156], tex, lit,
+                                              flame[:, c0:c1], image_size=256, max_tris_per_tile=res.n_faces)
+    finally:
+        renderer.rasterize_with_attrs = orig
+    loss = (maps.textured * weights[0]).sum() + (maps.normal * weights[1]).sum()
+    return torch.autograd.grad(loss, (tex, lit, captured["attrs"]))
+
+
+def check_render_gradient(res, counters: dict):
+    """Phase 15: the render's gradient on the card at the served shapes
+    (batch 8, 256 px) through kernels 1, 2 and 6 (counted, every launch held
+    to its plain version on the spot) against the same gradient through the
+    plain versions, both on the card; then kernel 6 timed at the albedo
+    lookup's shape.  Returns (launches, kernel 6's record fields)."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    n = 8
+    flame = np.zeros((n, 236), np.float32)
+    flame[:, :100] = rng.standard_normal((n, 100)) * 0.5
+    flame[:, 100:150] = rng.standard_normal((n, 50)) * 0.5
+    flame[:, 150:156] = rng.standard_normal((n, 6)) * 0.05
+    flame[:, 156] = 8.0
+    flame[:, 159:209] = rng.standard_normal((n, 50))
+    flame[:, 209:212] = 3.0
+    flame[:, 212:236] = rng.standard_normal((n, 24)) * 0.2
+    flame = torch.as_tensor(flame, device="cuda")
+    weights = [torch.as_tensor(rng.standard_normal((n, 256, 256, 3)).astype(np.float32), device="cuda")
+               for _ in range(2)]
+    render_grads(res, flame, weights)  # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with LaunchRecorder() as rec:
+        got = render_grads(res, flame, weights)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    with plain_render():
+        want = render_grads(res, flame, weights)
+    errs = {}
+    for name, g, w in zip(("texcode", "lightcode", "face_attrs"), got, want):
+        errs[name] = ((g - w).abs().max() / w.abs().max()).item()
+    log(f"phase render gradient (batch {n}, 256 px, through kernels 1, 2 and 6 vs their plain versions, both "
+        f"on the card): max |diff| / max |plain| {errs} (tol 1e-4: atomic sums in another order); "
+        f"launches {launches}; held on the spot: max_abs_err "
+        f"{ {k: v['max_abs_err'] for k, v in rec.stats.items() if v} }")
+    assert all(np.isfinite(v) and v <= 1e-4 for v in errs.values()), errs
+    assert all(w.abs().max().item() > 0 for w in want)
+    assert launches["raster"] == 1 and launches["sampler"] == 1 and launches["bilinear_scatter"] == 1, launches
+    albedo = time_round({"scatter": rec.rounds[0]["scatter"]}, rec.stats, f"albedo lookup gradient, batch {n}")
+    return launches, albedo["scatter"]
+
+
+def check_branches_against_cpu_plain():
+    """Phase 12, continued: one tiny run_id-8 step of each new branch (and
+    one crop + flip step) on the card against the CPU plain path, from one
+    seeded state, draws injected: the metrics, ``pl_mean`` and the D and G
+    gradients the step hands Adam (recorded by wrapping the step's Adam
+    call).  Conditions are given (rendered once on the CPU) except in the
+    crop + flip step, which renders them on each device."""
+    import torch
+
+    import gif_tpu_torch.train.step as step_mod
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.train.config import TINY_OVERRIDES, get_config
+    from gif_tpu_torch.train.state import create_train_state
+
+    res = synthetic_flame_resources(seed=1, n_vertices=503)
+    b, s = 4, TINY_OVERRIDES["max_size"]
+    rng = np.random.default_rng(12)
+    draws = {"shuffle_shift": 3, "noise_real": rng.standard_normal((b, s, s, 3)).astype(np.float32),
+             "noise_fake": rng.standard_normal((2 * b, s, s, 3)).astype(np.float32),
+             "noise_g": rng.standard_normal((1, b, s, s, 3)).astype(np.float32),
+             "pl_z": rng.standard_normal((1, b, 512)).astype(np.float32),
+             "pl_noise": rng.standard_normal((1, b, s, s, 3)).astype(np.float32)}
+    cases = {
+        "path_len_reg": dict(gen_reg_type="path_len_reg"),
+        "direct_grad_reg": dict(gen_reg_type="direct_grad_reg"),
+        "embedding_reg": dict(embedding_reg_weight=0.01),
+        "shuffled_negatives": dict(shfld_cond_as_neg_smpl=True),
+        "instance_noise": dict(d_input_noise_std=0.1),
+        "crop_flip": dict(render_in_step=True),
+    }
+    for name, flags in cases.items():
+        cfg = get_config(8, **{**TINY_OVERRIDES, "embedding_vocab_size": 16, "batch_size": b, "r1_interval": 2,
+                               "render_in_step": False, **flags})
+        case_draws = dict(draws, noise_fake=draws["noise_fake"][: 2 * b if cfg.shfld_cond_as_neg_smpl else b])
+        base = train_batch(cfg, b, "cpu", seed=1)
+        if cfg.render_in_step:
+            base = augment_batch(base, seed=1)
+        else:
+            with torch.no_grad():
+                base["cond"] = step_mod.render_condition_maps(res, base["flame"], cfg, res.n_faces)
+        grads, mets, pl = {}, {}, {}
+        for d in ("cuda", "cpu"):
+            state = create_train_state(cfg, seed=0, device=d)
+            state.step = 1  # (1 + 1) % 2 == 0: R1 fires
+            recorded = []
+            orig = step_mod._adam_step
+
+            def adam_step(opt, params, g, orig=orig, recorded=recorded):
+                recorded.append([t.detach().cpu() for t in g])
+                orig(opt, params, g)
+
+            step_mod._adam_step = adam_step
+            try:
+                step = step_mod.make_train_step(cfg, res, device=d, max_tris_per_tile=res.n_faces)
+                _, m = step(state, {k: v.to(d) for k, v in base.items()}, case_draws)
+            finally:
+                step_mod._adam_step = orig
+            grads[d] = [t for g in recorded for t in g]
+            mets[d] = {k: v.item() for k, v in m.items()}
+            pl[d] = state.pl_mean.item()
+        g_err = max(((a - c).abs().max() / c.abs().max().clamp(min=1e-30)).item()
+                    for a, c in zip(grads["cuda"], grads["cpu"]))
+        m_err = max(abs(mets["cuda"][k] - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-12)
+                    for k in ("d_loss", "g_loss", "r1", "g_total"))
+        pl_err = abs(pl["cuda"] - pl["cpu"]) / max(abs(pl["cpu"]), 1e-12)
+        bar = 1e-2 if cfg.render_in_step else 1e-3
+        log(f"cuda vs cpu plain (tiny run_id-8 step, {name}, R1 on, draws injected): D and G gradients max "
+            f"|diff| / max |cpu| per tensor {g_err:.3g}, metrics max relative diff {m_err:.3g}, pl_mean "
+            f"{pl_err:.3g} (tol {bar:g}{': conditions rendered on each device' if cfg.render_in_step else ''}); "
+            f"cuda {mets['cuda']}")
+        assert len(grads["cuda"]) == len(grads["cpu"]) > 0 and mets["cuda"]["r1"] > 0
+        assert g_err <= bar and m_err <= bar and pl_err <= bar, (name, g_err, m_err, pl_err)
 
 
 def main() -> int:
@@ -1277,6 +1678,16 @@ def main() -> int:
     # --- phase 12: tiny train steps on the card vs the CPU plain path ---
     check_train_against_cpu_plain(8)
     check_train_against_cpu_plain(0)
+    check_branches_against_cpu_plain()
+
+    # --- phase 13: the regularized run_id-8 step (every D branch, path length) ---
+    launches_reg, warm_reg, errs_reg = train_regularized(res, counters, smi)
+
+    # --- phase 14: the fused run_id-0 step with the direct gradient regularizer ---
+    launches_dg, warm_dg, errs_dg = train_run_id0_direct(res, counters, smi)
+
+    # --- phase 15: the render's gradient on the card ---
+    launches_rg, albedo = check_render_gradient(res, counters)
 
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
@@ -1296,7 +1707,15 @@ def main() -> int:
             r["serve"] = {"launches": serve_launches[meta["name"]], **serve_parts[kind]}
             r["max_abs_err"] = max(r["max_abs_err"], serve_parts[kind]["max_abs_err"])
         r["run_id0"] = run0
-        r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"])
+        # The paths of phases 13-15: counted launches (and the recorded
+        # warm-up step's, every one held to the plain version).
+        r["run_id8_reg"] = {"launches": launches_reg[meta["name"]], "warmup_launches": warm_reg[kind]}
+        r["run_id0_direct"] = {"launches": launches_dg[meta["name"]], "warmup_launches": warm_dg[kind]}
+        r["render_grad"] = {"launches": launches_rg[meta["name"]]}
+        if kind == "scatter":
+            r["albedo"] = albedo
+        r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),
+                               errs_dg.get(kind, 0.0), albedo["max_abs_err"] if kind == "scatter" else 0.0)
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -2,8 +2,8 @@
 
 The PyTorch port of :mod:`gif_tpu`, which stays in the repository as the
 reference it is held against.  The subpackages mirror ``gif_tpu``'s layout
-(``flame/``, ``render/``, ``ops/``, ``models/``, ``eval/``, ``train/``,
-``utils/``, ``serve.py``) so each counterpart is easy to find.
+(``flame/``, ``render/``, ``ops/``, ``models/``, ``eval/``, ``data/``,
+``train/``, ``utils/``, ``serve.py``) so each counterpart is easy to find.
 
 Conventions:
 
@@ -16,7 +16,8 @@ Conventions:
   plain PyTorch version beside it: a wrapper takes the plain
   version for CPU tensors only and launches the kernel for CUDA tensors;
   gradients are ``torch.autograd.Function``s whose backward is a kernel
-  too, differentiable again where R1 needs it;
+  too (or, where the JAX package's VJP was plain XLA, plain torch),
+  differentiable again where R1 and G's regularizers need it;
 - entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
   and raise when no GPU is present (no silent CPU fallback).
 """

@@ -91,7 +91,10 @@ class FlameResources:
     def tensor(self, name: str, device, dtype=None):
         """Field ``name`` as a tensor on ``device`` (optionally cast),
         memoized on the instance so the ~45 MB of bases and texture PCA
-        cross to the card once per resource set, not once per batch."""
+        cross to the card once per resource set, not once per batch.  The
+        tensor is made outside inference mode, so a resource set first used
+        by the server can later be differentiated through (the render's
+        gradient)."""
         import torch
 
         cache = self.__dict__.get("_tensors")
@@ -101,9 +104,10 @@ class FlameResources:
         key = (name, str(torch.device(device)), dtype)
         t = cache.get(key)
         if t is None:
-            t = torch.as_tensor(np.asarray(getattr(self, name))).to(device)
-            if dtype is not None:
-                t = t.to(dtype)
+            with torch.inference_mode(False):
+                t = torch.as_tensor(np.asarray(getattr(self, name))).to(device)
+                if dtype is not None:
+                    t = t.to(dtype)
             cache[key] = t
         return t
 

@@ -200,7 +200,9 @@ def rasterize_plain(
       h, w: output size (multiples of ``tile``).
 
     Returns:
-      (RasterOutput, attr_img (B, H, W, D) or None).
+      (RasterOutput, attr_img (B, H, W, D) or None).  ``attr_img`` is
+      differentiable in ``face_attrs`` (autograd of the gather); the
+      positions get no gradient.
     """
     if h % tile or w % tile:
         raise ValueError(f"image {h}x{w} is not a multiple of tile {tile}")
@@ -247,5 +249,5 @@ def rasterize_plain(
     rast = RasterOutput(depth, tri, bary, overflow)
     attr_img = None
     if face_attrs is not None:
-        attr_img = interpolate_face_attributes(tri, bary, face_attrs.detach().float())
+        attr_img = interpolate_face_attributes(tri, bary, face_attrs.float())
     return rast, attr_img

@@ -17,6 +17,12 @@ the Pallas kernel's 32-face chunks): a tile overflows when more than
 tile.  The plain version (:func:`gif_tpu_torch.render.raster.rasterize_plain`)
 bins with ``bin_faces`` / ``face_table``; the kernel equals it bit for bit.
 
+:func:`rasterize_with_attrs` is an autograd Function
+(:class:`RasterizeWithAttrs`) on either device: the interpolated attributes
+are differentiable in the corner attributes through
+:func:`face_attrs_vjp`, an ``index_add_`` of ``bary * g`` over the winning
+faces (the port of JAX's ``_rwa_bwd``, an XLA segment-sum there).
+
 :func:`morton_face_order` is the JAX package's one-time spatial face
 permutation, kept for callers that want spatially coherent face ids; the
 port's face-granular binning does not need it, so the renderer keeps the
@@ -134,9 +140,51 @@ def launch_kernel(fv, attrs, bufs, max_tris_per_tile, h, w, tile, passes=ALL_PAS
         rasterize_with_attrs.launches += 1
 
 
+def face_attrs_vjp(tri_id: torch.Tensor, bary: torch.Tensor, g: torch.Tensor, n_faces: int) -> torch.Tensor:
+    """The attribute gradient of kernel 1's interpolation (JAX's ``_rwa_bwd``,
+    ``gif_tpu/render/raster_pallas.py:593-611``, an XLA segment-sum there):
+    ``d face_attrs[b, f, k, :]`` is the sum of ``bary[k] * g`` over the
+    pixels face ``f`` won; background pixels add nothing.  (B, H, W) ids,
+    (B, H, W, 3) barycentrics, (B, H, W, D) cotangents -> (B, F, 3, D)."""
+    b, d = g.shape[0], g.shape[-1]
+    hit = tri_id >= 0
+    rows = (tri_id.long() + torch.arange(b, device=g.device)[:, None, None] * n_faces)[hit]
+    contrib = (bary[..., :, None] * g[..., None, :])[hit]  # (N, 3, D)
+    out = torch.zeros((b * n_faces, 3 * d), dtype=g.dtype, device=g.device)
+    out.index_add_(0, rows, contrib.reshape(-1, 3 * d))
+    return out.reshape(b, n_faces, 3, d)
+
+
+class RasterizeWithAttrs(torch.autograd.Function):
+    """Kernel 1 (its plain version on the CPU) with the attribute VJP:
+    differentiable in ``face_attrs``; the positions get no gradient, as in
+    the reference rasterizer."""
+
+    @staticmethod
+    def forward(ctx, face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile):
+        if face_verts_pix.is_cuda:
+            rast, attr_img = rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
+        else:
+            rast, attr_img = rasterize_plain(
+                face_verts_pix, face_attrs, h=h, w=w, tile=tile, max_tris_per_tile=max_tris_per_tile
+            )
+        ctx.save_for_backward(rast.tri_id, rast.bary)
+        ctx.n_faces, ctx.attr_dtype = face_attrs.shape[1], face_attrs.dtype
+        ctx.mark_non_differentiable(*rast)
+        return (*rast, attr_img)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if not ctx.needs_input_grad[1]:
+            return (None,) * 6
+        tri_id, bary = ctx.saved_tensors
+        d_attrs = face_attrs_vjp(tri_id, bary, grads[-1].float(), ctx.n_faces)
+        return None, d_attrs.to(ctx.attr_dtype), None, None, None, None
+
+
 def rasterize_with_attrs(
     face_verts_pix: torch.Tensor,
-    face_attrs: torch.Tensor | None,
+    face_attrs: torch.Tensor,
     h: int,
     w: int,
     tile: int = 32,
@@ -144,13 +192,10 @@ def rasterize_with_attrs(
 ):
     """Rasterize (B, F, 3, 3) pixel-space faces and interpolate their
     (B, F, 3, D) corner attributes: returns (RasterOutput, attr_img
-    (B, H, W, D)).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    if face_verts_pix.is_cuda:
-        return rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
-    return rasterize_plain(
-        face_verts_pix, face_attrs, h=h, w=w, tile=tile, max_tris_per_tile=max_tris_per_tile
-    )
+    (B, H, W, D)), differentiable in ``face_attrs``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    *rast, attr_img = RasterizeWithAttrs.apply(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
+    return RasterOutput(*rast), attr_img
 
 
 rasterize_with_attrs.launches = 0

@@ -11,6 +11,11 @@ The kernel reads the image through its element strides, so a strided view
 goes in without a copy: the renderer's NHWC-contiguous albedo map and the
 texture steal's NHWC view of the generator's NCHW output (a batch slice
 of it, ``train/step.py``) are two cases of one launch.
+
+:func:`grid_sample` is differentiable: it runs through
+:class:`gif_tpu_torch.render.sampling_ops.SampleAtPoints`, whose image
+gradient is kernel 6 and whose grid gradient is plain torch (XLA's
+``grid_sample`` VJP in JAX, ``_gsm_bwd``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from gif_tpu_torch import kernels
-from gif_tpu_torch.render.shading import grid_sample_bilinear
 
 _INT32_MAX = 2**31 - 1
 
@@ -95,11 +99,14 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling of (B,H,W,C) images at (B,Ho,Wo,2) [-1,1] coords
-    (zeros padding, align_corners=False).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    if img.is_cuda:
-        return grid_sample_cuda(img, grid)
-    return grid_sample_bilinear(img, grid)
+    (zeros padding, align_corners=False), differentiable in the image (by
+    kernel 6) and the grid.  CPU tensors take the plain versions; CUDA
+    tensors launch the kernels."""
+    # Imported here: sampling_ops imports this module for the launch.
+    from gif_tpu_torch.render.sampling_ops import sample_at_points
+
+    b, ho, wo, _ = grid.shape
+    return sample_at_points(img, grid.reshape(b, ho * wo, 2), pts_grad=True).reshape(b, ho, wo, -1)
 
 
 grid_sample.launches = 0

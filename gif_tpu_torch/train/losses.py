@@ -1,13 +1,17 @@
-"""GAN losses (port of :mod:`gif_tpu.train.losses`): the non-saturating
-softplus losses, the R1 penalty (weight 5, on the real images only) and the
-texture-space interpolation loss with its pieces.  The other regularizers
-(path length, direct gradient, embedding) wait for the slices that run
-them.
+"""GAN losses and regularizers (port of :mod:`gif_tpu.train.losses`): the
+non-saturating softplus losses, the R1 penalty (weight 5, on the real
+images only), the path-length penalty (a 512-d z and a true EMA of the
+path length: the JAX package's two fixes of the original code), the
+direct gradient penalty, the derangement behind shuffled-condition negatives, the L2 parameter norm of
+the embedding regularizer, the texture-space interpolation loss with its
+pieces, and two terms no preset uses (``wgan_gp_loss``,
+``disentanglement_penalty``).
 
-The interpolation loss draws three random values: the lerp weight ``t``,
-the fixed identity and the ``n_pick`` pairs.  Each is an argument; left
-``None`` it is drawn from the ``torch.Generator`` passed (the default
-generator when none is).
+Every random draw is an argument; left ``None`` it is drawn from the
+``torch.Generator`` passed (the default generator when none is).  The
+interpolation loss draws the lerp weight ``t``, the fixed identity and the
+``n_pick`` pairs; the path-length penalty its projection noise; the
+derangement its cyclic shift.
 """
 
 from __future__ import annotations
@@ -44,6 +48,97 @@ def r1_penalty(d_apply, real_image: torch.Tensor, condition, weight: float = 5.0
     Differentiable a second time."""
     real = real_image.detach().requires_grad_(True)
     return r1_from_scores(d_apply(real, condition), real, weight)
+
+
+def path_length_penalty(g_apply_z, z: torch.Tensor, pl_mean: torch.Tensor, decay: float = 0.01,
+                        noise=None, generator=None):
+    """StyleGAN2's path-length penalty on the z -> image Jacobian.
+
+    ``g_apply_z(z) -> images`` (B, H, W, 3); ``z`` (B, 512); ``pl_mean`` the
+    running mean of path lengths (0-d).  ``noise`` is the projection's
+    standard-normal draw of the images' shape (drawn from ``generator``
+    when None), scaled by ``1 / sqrt(images.numel())``.  Returns (penalty,
+    new_pl_mean), both differentiable in G's parameters: as in the JAX
+    package, ``new_pl_mean`` is not detached, so the gradient also reaches
+    G through it."""
+    z = z.detach().requires_grad_(True)
+    images = g_apply_z(z)
+    if noise is None:
+        noise = torch.randn(images.shape, generator=generator)
+    noise = torch.as_tensor(noise, dtype=images.dtype, device=images.device)
+    noise = noise / float(np.sqrt(np.prod(images.shape, dtype=np.float64)))
+    (grads,) = torch.autograd.grad(images, z, noise, create_graph=True)
+    lengths = torch.mean(torch.sqrt(torch.sum(grads**2, dim=1)))
+    new_mean = pl_mean + decay * (lengths - pl_mean)
+    return (lengths - new_mean) ** 2, new_mean
+
+
+def direct_grad_penalty(g_apply_cond, cond: torch.Tensor) -> torch.Tensor:
+    """The direct gradient regularizer's penalty: the per-sample squared
+    norm of ``d sum(G(cond)**2) / d cond``, meaned over the batch (the step
+    weights it by 8e-8).  ``g_apply_cond(cond) -> images``.  The gradient's
+    graph is kept, so the penalty is differentiable in G's parameters (a
+    second-order pass through G)."""
+    c = cond.detach().requires_grad_(True)
+    (g_c,) = torch.autograd.grad(torch.sum(g_apply_cond(c) ** 2), c, create_graph=True)
+    return g_c.reshape(g_c.shape[0], -1).square().sum(1).mean()
+
+
+def wgan_gp_loss(predictions: torch.Tensor) -> torch.Tensor:
+    """-(p - 0.001 p^2), elementwise (API surface; no preset uses it)."""
+    return -(predictions - 0.001 * predictions**2)
+
+
+def derangement_indices(n: int, shift=None, generator=None) -> torch.Tensor:
+    """A fixed-point-free permutation of range(n): a cyclic shift by
+    ``shift`` in [1, n) (drawn uniformly from ``generator`` when None).
+    Raises for n < 2, where no derangement exists."""
+    if n < 2:
+        raise ValueError(
+            f"derangement needs n >= 2 (got per-shard batch {n}); raise the "
+            "global batch or use fewer mesh devices"
+        )
+    if shift is None:
+        shift = torch.randint(1, n, (), generator=generator)
+    shift = int(shift)
+    if not 1 <= shift < n:
+        raise ValueError(f"derangement shift {shift} is not in [1, {n})")
+    return (torch.arange(n) + shift) % n
+
+
+def disentanglement_penalty(d_apply_flm, image: torch.Tensor, flame_params: torch.Tensor) -> torch.Tensor:
+    """Factor-wise gradient penalty of a discriminator with 5 decision
+    columns [real, shape-match, exp-match, pose-match, cam-match]:
+    ``d_apply_flm(image, flame) -> (B, 5)``; per column, the norm of the
+    gradient with respect to the FLAME parameters outside that column's
+    factor.  (B,) per-sample penalties, differentiable a second time (API
+    surface; no preset uses it)."""
+    sh, ex = cnst.INDICES["SHAPE"], cnst.INDICES["EXP"]
+    po, ca = cnst.INDICES["POSE"], cnst.INDICES["CAM"]
+    flame = flame_params.detach().requires_grad_(True)
+    scores = d_apply_flm(image, flame)
+
+    def col_grad(col):
+        (g,) = torch.autograd.grad(scores[:, col].sum(), flame, create_graph=True)
+        return g
+
+    def norm(part):
+        return torch.linalg.norm(part.reshape(part.shape[0], -1), dim=1)
+
+    d_img = norm(col_grad(0))
+    d_shape = norm(col_grad(1)[:, ex[0]:236])
+    g2 = col_grad(2)
+    d_exp = norm(torch.cat([g2[:, sh[0]:sh[1]], g2[:, po[0]:ca[1]]], dim=1))
+    g3 = col_grad(3)
+    d_pose = norm(torch.cat([g3[:, sh[0]:sh[1]], g3[:, ex[0]:ex[1]]], dim=1))
+    g4 = col_grad(4)
+    d_cam = norm(torch.cat([g4[:, sh[0]:sh[1]], g4[:, ex[0]:ex[1]]], dim=1))
+    return 0.5 * (d_img + d_shape + d_exp + d_pose + d_cam)
+
+
+def l2_param_norm(params) -> torch.Tensor:
+    """Sum of the parameters' L2 norms (the embedding regularizer)."""
+    return sum(torch.linalg.norm(p.reshape(-1)) for p in params)
 
 
 def interpolate_flame_batch(flame_labels: torch.Tensor, t=None, generator=None) -> torch.Tensor:

@@ -325,7 +325,7 @@ def test_sample_at_points_launches_kernels_2_and_6(cuda_device):
     torch.cuda.synchronize()
     assert (sampler_cuda.grid_sample.launches, scatter_cuda.scatter_bilinear.launches) == (
         before[0] + 1, before[1] + 1)
-    want = sampling_ops.sample_at_points_plain(img.detach(), pts)
+    want = shading.grid_sample_bilinear(img.detach(), pts[:, :, None, :])[:, :, 0]
     torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
     plain = sampling_ops.scatter_bilinear_plain(cot, pts, 64, 64)
     assert (d_img - plain).abs().max().item() <= 1e-5 * plain.abs().max().item() + 1e-7
@@ -341,3 +341,67 @@ def test_kernel_wrappers_raise_on_unsupported_input(cuda_device):
     with pytest.raises(ValueError):
         scatter_cuda.scatter_bilinear(torch.zeros((1, 4, 3), dtype=torch.float64, device=cuda_device),
                                       torch.zeros((1, 4, 2), dtype=torch.float64, device=cuda_device), 8, 8)
+
+
+def _albedo_points(rng, b, n, device):
+    """(b, n, 2) grid points as the albedo lookup makes them at 256 px: about
+    two thirds background pixels, whose interpolated UV is 0 (grid -1: one
+    valid tap, on texel (0, 0)), the rest spread over the face's UV
+    region."""
+    pts = rng.uniform(-0.8, 0.8, (b, n, 2)).astype(np.float32)
+    pts[rng.uniform(size=(b, n)) < 0.65] = -1.0
+    return torch.from_numpy(pts).to(device)
+
+
+def test_scatter_kernel_at_the_albedo_shape(cuda_device):
+    """Kernel 6 as the albedo lookup's image gradient: 65536 points a sample
+    (a 256 x 256 render) into the 256 x 256 x 3 albedo map."""
+    rng = np.random.default_rng(8)
+    pts = _albedo_points(rng, 4, 256 * 256, cuda_device)
+    g = torch.from_numpy(rng.standard_normal((4, 256 * 256, 3)).astype(np.float32)).to(cuda_device)
+    before = scatter_cuda.scatter_bilinear.launches
+    got = scatter_cuda.scatter_bilinear(g, pts, 256, 256)
+    want = sampling_ops.scatter_bilinear_plain(g, pts, 256, 256)
+    torch.cuda.synchronize()
+    assert scatter_cuda.scatter_bilinear.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-7
+
+
+def test_raster_function_backward_matches_plain(cuda_device):
+    """Kernel 1's autograd Function: the attribute gradient (an index_add_
+    on the kernel's winners) equals the autograd of the plain version's
+    gather up to the order of their atomic sums; positions get none."""
+    rng = np.random.default_rng(9)
+    fv = torch.from_numpy(_random_faces(rng, 2, 600, 128, 128)).to(cuda_device).requires_grad_(True)
+    attrs = torch.from_numpy(rng.standard_normal((2, 600, 3, 5)).astype(np.float32)).to(cuda_device)
+    attrs.requires_grad_(True)
+    cot = torch.from_numpy(rng.standard_normal((2, 128, 128, 5)).astype(np.float32)).to(cuda_device)
+    _, img = raster_cuda.rasterize_with_attrs(fv, attrs, 128, 128, 32, 256)
+    d_fv, got = torch.autograd.grad(img, (fv, attrs), cot, allow_unused=True)
+    _, plain_img = raster.rasterize_plain(fv, attrs, h=128, w=128, tile=32, max_tris_per_tile=256)
+    (want,) = torch.autograd.grad(plain_img, attrs, cot)
+    assert d_fv is None and want.abs().max().item() > 0
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-7
+
+
+def test_sampler_function_backward_matches_plain(cuda_device):
+    """``grid_sample`` on the card: forward kernel 2, image gradient kernel 6
+    (its bar), grid gradient plain torch — against the autograd of the plain
+    sampler on the same card tensors (rtol 1e-5 of the largest entry)."""
+    rng = np.random.default_rng(10)
+    img = torch.from_numpy(rng.uniform(0, 1, (4, 256, 256, 3)).astype(np.float32)).to(cuda_device)
+    grid = _albedo_points(rng, 4, 128 * 128, cuda_device).reshape(4, 128, 128, 2)
+    cot = torch.from_numpy(rng.standard_normal((4, 128, 128, 3)).astype(np.float32)).to(cuda_device)
+    img.requires_grad_(True)
+    grid.requires_grad_(True)
+    before = sampler_cuda.grid_sample.launches, scatter_cuda.scatter_bilinear.launches
+    out = sampler_cuda.grid_sample(img, grid)
+    d_img, d_grid = torch.autograd.grad(out, (img, grid), cot)
+    torch.cuda.synchronize()
+    assert (sampler_cuda.grid_sample.launches, scatter_cuda.scatter_bilinear.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out = shading.grid_sample_bilinear(img, grid)
+    want_img, want_grid = torch.autograd.grad(want_out, (img, grid), cot)
+    assert torch.equal(out, want_out.detach())
+    assert (d_img - want_img).abs().max().item() <= 1e-5 * want_img.abs().max().item() + 1e-7
+    assert (d_grid - want_grid).abs().max().item() <= 1e-5 * want_grid.abs().max().item()

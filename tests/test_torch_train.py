@@ -151,7 +151,7 @@ def test_step_gradients_match_jax(jax_steps):
     fake_live = gen(tb["cond"], input_indices=tb["indices"].long(), step=cfg.max_step)
     _, r1, d_grads = d_loss_and_grads(disc, tb["real_image"], tb["cond"], fake_live.detach(), cfg, True)
     assert r1.item() > 0
-    _, _, g_grads = g_loss_and_grads(gen, disc, fake_live, tb["cond"])
+    _, _, _, g_grads, _ = g_loss_and_grads(gen, disc, fake_live, tb["cond"])
     want = convert_train_state(numpy_state(jstate).replace(d_params=d_want, g_params=g_want))
     for got_grads, module, want_sd in (
         (d_grads, disc, want["discriminator"]), (g_grads, gen, want["generator"])
@@ -254,24 +254,13 @@ def test_n_critic_schedules():
         next(state.discriminator.parameters())]["step"].item() == 1.0
 
 
-@pytest.mark.parametrize("flag", [
-    dict(gen_reg_type="path_len_reg"), dict(embedding_reg_weight=0.1),
-    dict(shfld_cond_as_neg_smpl=True), dict(d_input_noise_std=0.1),
-])
-def test_unported_branches_raise(flag):
-    over = {**_over(), **flag}
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        make_train_step(get_config(8, **over), RES_T, device="cpu")
-
-
 def test_augmented_batches_raise_and_default_device_needs_cuda(monkeypatch):
+    """Augmented batches now step (tests/test_torch_train_branches.py); what
+    still raises: an unknown regularizer type, and the CUDA default without
+    a card."""
     cfg = get_config(8, **_over(render_in_step=False))
-    state = create_train_state(cfg, device="cpu")
-    step = make_train_step(cfg, RES_T, device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    for key in ("crop", "flip"):
-        with pytest.raises(NotImplementedError, match=key):
-            step(state, {**batch, key: torch.zeros(B)})
+    with pytest.raises(ValueError, match="gen_reg_type"):
+        make_train_step(get_config(8, **_over(gen_reg_type="pathlen")), RES_T, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(cfg, RES_T)

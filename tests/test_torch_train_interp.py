@@ -170,7 +170,7 @@ def test_interp_step_gradients_match_jax(jax_steps, adaptive):
                     step=cfg.max_step)
     _, r1, d_grads = d_loss_and_grads(disc, tb["real_image"], tb["cond"], fake_live[:B].detach(), cfg, True)
     assert r1.item() > 0
-    g_adv, interp, g_grads = g_loss_and_grads(
+    g_adv, _, interp, g_grads, _ = g_loss_and_grads(
         gen, disc, fake_live, tb["cond"],
         lambda: tl.interp_penalty_from_images(
             RES_T, fake_live[B:], t_flm, draws["interp_pairs"], torch.from_numpy(RES_T.face_region_mask)
