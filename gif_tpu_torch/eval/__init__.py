@@ -1,1 +1,2 @@
-"""Sampling entry points (port of ``gif_tpu.eval``)."""
+"""Evaluation (port of ``gif_tpu.eval``): the FID InceptionV3, FID with
+cached real statistics, and batched sampling from FLAME parameters."""

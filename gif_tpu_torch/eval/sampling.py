@@ -29,13 +29,18 @@ def load_generator_params(cfg, converted_params: str | None = None, seed: int = 
 
 
 class FlameSampler:
-    """generator(flame_params_236, indices) -> images, batched."""
+    """generator(flame_params_236, indices) -> images, batched.
+
+    ``g_state`` is a generator state_dict, loaded into a fresh
+    ``StyledGenerator`` built with ``w_truncation_factor``, or a
+    ``StyledGenerator`` on ``device`` to sample with as it is (the train
+    loop's EMA generator; it keeps its own truncation factor)."""
 
     def __init__(
         self,
         cfg: TrainConfig,
         res,
-        g_state: dict,
+        g_state: dict | StyledGenerator,
         batch_size: int = 16,
         eye_center: bool = True,
         max_tris_per_tile: int | None = None,
@@ -52,11 +57,14 @@ class FlameSampler:
         self.max_tris_per_tile = max_tris_per_tile
         # Samples whose render dropped candidate triangles (tile overflow).
         self.render_overflows = 0
-        gen = StyledGenerator.from_config(cfg, w_truncation_factor=w_truncation_factor)
-        gen.load_state_dict(g_state)
-        self.generator = gen.to(self.device).eval()
+        if isinstance(g_state, StyledGenerator):
+            self.generator = g_state
+        else:
+            gen = StyledGenerator.from_config(cfg, w_truncation_factor=w_truncation_factor)
+            gen.load_state_dict(g_state)
+            self.generator = gen.to(self.device).eval()
         self._mean_w = None
-        if abs(w_truncation_factor - 1.0) > 0.01:
+        if abs(self.generator.w_truncation_factor - 1.0) > 0.01:
             with torch.inference_mode():
                 self._mean_w = self.generator.mean_latent()
 
@@ -72,8 +80,9 @@ class FlameSampler:
         img = self.generator(cond, input_indices=ix, step=self.cfg.max_step, mean_w=self._mean_w)
         return img, cond, overflow
 
-    def sample_batches(self, flame_params: np.ndarray, indices: np.ndarray):
-        """Yield (images [-1,1] (b,S,S,3), cond (b,S,S,C)) numpy batches."""
+    def _padded_batches(self, flame_params: np.ndarray, indices: np.ndarray):
+        """Yield (images, cond, valid rows) on the device, one full batch at
+        a time; a short last batch repeats its last row."""
         n = len(flame_params)
         bs = self.batch_size
         for i in range(0, n, bs):
@@ -86,7 +95,20 @@ class FlameSampler:
                 ix = np.concatenate([ix, np.repeat(ix[-1:], pad, 0)])
             img, cond, overflow = self._run(fl, ix)
             self.render_overflows += int(overflow[:valid].sum())
+            yield img, cond, valid
+
+    def sample_batches(self, flame_params: np.ndarray, indices: np.ndarray):
+        """Yield (images [-1,1] (b,S,S,3), cond (b,S,S,C)) numpy batches."""
+        for img, cond, valid in self._padded_batches(flame_params, indices):
             yield img[:valid].cpu().numpy(), cond[:valid].cpu().numpy()
+
+    def sample_batches_device(self, flame_params: np.ndarray, indices: np.ndarray):
+        """Yield ``(images, n_valid)``: the padded [-1, 1] (bs, S, S, 3)
+        image batch left on the device, for a consumer that keeps computing
+        there (``FidComputer.get_fid_streaming``); only its first
+        ``n_valid`` rows are samples."""
+        for img, _, valid in self._padded_batches(flame_params, indices):
+            yield img, valid
 
     def sample(self, flame_params: np.ndarray, indices: np.ndarray):
         """Returns (images [-1,1] (N,S,S,3), cond maps (N,S,S,C)) as numpy."""

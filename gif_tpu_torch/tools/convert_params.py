@@ -3,9 +3,10 @@
 Input: flax ``g_params`` / ``g_ema_params`` / ``d_params`` and ``buffers``
 nested dicts as numpy — the trees a ``gif_tpu`` train state holds and the
 pickles ``gif_tpu.tools.convert_checkpoint`` writes — or a whole train
-state (:func:`convert_train_state`).  The module names of
-:mod:`gif_tpu_torch.models` follow the flax tree, so the conversion is a
-flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
+state (:func:`convert_train_state`); and the FID InceptionV3's flax
+params (:func:`convert_inception_params`, :func:`load_inception_npz`).
+The module names of :mod:`gif_tpu_torch.models` follow the flax tree, so
+the conversion is a flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
 
 - HWIO conv weights (EqualConv / ModulatedConv ``weight``, flax ``nn.Conv``
   ``kernel`` renamed ``weight``) -> OIHW;
@@ -97,6 +98,42 @@ def convert_train_state(state) -> dict:
         "pl_mean": float(np.asarray(state.pl_mean)),
         "used_samples": int(np.asarray(state.used_samples)),
     }
+
+
+_BN_NAMES = {"bn_gamma": "bn.weight", "bn_beta": "bn.bias", "bn_mean": "bn.running_mean",
+             "bn_var": "bn.running_var"}
+
+
+def convert_inception_params(flax_tree: dict) -> dict:
+    """flax ``InceptionV3FID`` params (``gif_tpu.eval.inception``: each
+    ``BasicConv2d`` holds ``conv/kernel`` HWIO and ``bn_gamma`` /
+    ``bn_beta`` / ``bn_mean`` / ``bn_var``) -> the state_dict of
+    :class:`gif_tpu_torch.eval.inception.InceptionV3FID` (pytorch_fid's
+    names, OIHW)."""
+    sd = {}
+    for name, arr in _flatten(flax_tree):
+        prefix, leaf = name.rsplit(".", 1)
+        if leaf == "kernel":
+            sd[prefix + ".weight"] = _tensor(arr.transpose(3, 2, 0, 1))
+        elif leaf in _BN_NAMES:
+            sd[f"{prefix}.{_BN_NAMES[leaf]}"] = _tensor(arr)
+        else:
+            raise KeyError(f"unexpected InceptionV3 parameter {name}")
+    return sd
+
+
+def load_inception_npz(path: str) -> dict:
+    """The ``.npz`` that ``gif_tpu.tools.convert_inception`` writes (flax
+    params, keys joined by ``/``) -> an ``InceptionV3FID`` state_dict."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return convert_inception_params(tree)
 
 
 def main(argv=None):

@@ -35,6 +35,36 @@ class TrainState:
     pl_mean: torch.Tensor  # path-length running mean (0-d f32)
     used_samples: int
 
+    def state_dict(self) -> dict:
+        """Everything a checkpoint holds: G, the EMA and D state_dicts, both
+        Adam states, ``step``, ``used_samples`` and ``pl_mean``.  The
+        tensors are the live ones (no copies); the EMA's ``embedding`` is
+        the generator's own tensor, so ``torch.save`` stores it once."""
+        return {
+            "generator": self.generator.state_dict(),
+            "g_ema": self.g_ema.state_dict(),
+            "discriminator": self.discriminator.state_dict(),
+            "g_opt": self.g_opt.state_dict(),
+            "d_opt": self.d_opt.state_dict(),
+            "step": self.step,
+            "used_samples": self.used_samples,
+            "pl_mean": self.pl_mean,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Load :meth:`state_dict`'s output in place (strictly, key for
+        key); the EMA keeps sharing the generator's embedding buffer."""
+        self.generator.load_state_dict(sd["generator"])
+        self.g_ema.load_state_dict(sd["g_ema"])
+        self.g_ema.embedding = self.generator.embedding
+        self.discriminator.load_state_dict(sd["discriminator"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.d_opt.load_state_dict(sd["d_opt"])
+        self.step = int(sd["step"])
+        self.used_samples = int(sd["used_samples"])
+        self.pl_mean = sd["pl_mean"].to(self.pl_mean.device, torch.float32).clone()
+
 
 def make_optimizers(cfg: TrainConfig, g_params, d_params):
     """Adam with StyleGAN2 reg-ratio-scaled hyperparameters for G and D."""

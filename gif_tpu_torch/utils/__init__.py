@@ -1,1 +1,2 @@
-"""Image utilities and the parameter EMA (port of ``gif_tpu.utils``)."""
+"""Image utilities, the parameter EMA and sample grids (port of
+``gif_tpu.utils``)."""

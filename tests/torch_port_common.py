@@ -6,6 +6,7 @@ the JAX package and its PyTorch port; JAX stays on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -22,6 +23,24 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def cpu_threads(n: int = 2):
+    """Torch's and the BLAS / OpenMP thread pools capped at ``n`` while the
+    block runs.  The tier-1 run puts six test processes on one machine;
+    each with pools as wide as the machine oversubscribes it, and the
+    busy-waiting pool threads of the heavy files (InceptionV3 at 299 px,
+    the 2048-d matrix square root) then slow every process down."""
+    from threadpoolctl import threadpool_limits
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        with threadpool_limits(limits=n):
+            yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def tiny_overrides(**extra):
