@@ -94,7 +94,29 @@ Phases (each raises on failure; nothing is caught):
     later steps logged beside a second resume (the card's nondeterminism);
 17. the Inception features of 16 frames on the card against the CPU
     (1e-3 of max), and 4 run_id-0 steps through ``train()`` (kernel 6
-    launched).
+    launched);
+18. data parallelism's production backend: ``initialize_distributed``
+    with NCCL, world size 1, in this process, and ``train(group=...)`` at
+    run_id 8, the same full width, batch 16, a fresh 512-frame render
+    dataset: every counter 0, then 5 steps (R1 on the fifth: r1_interval
+    5), a row every step, the random-weight FID on 512 samples at steps 0
+    and 5; checks the rows, three mean all-reduces a step (D's gradient,
+    G's, the metrics) and kernels 1-5 in the steps; the plain steps'
+    images/s beside phase 16's;
+19. two data-parallel ranks on the one card, spawned with the gloo
+    backend (NCCL refuses two ranks on one device), global batch 16 (8 a
+    rank), each through ``train()``: run_id 8 for 5 steps (R1 on the
+    fifth, the FID baseline on rank 0, a checkpoint at 5), both ranks
+    resumed from it to step 7, then 2 run_id-0 steps; checks the ranks'
+    G, D and EMA bit-equal after every step (digests), rows and grids from
+    rank 0 only, ``used_samples`` = steps x 16, kernels 1-5 on each rank
+    (and 6 under run_id 0; counters 0 just before each run, read just
+    after), and the all-reduced D gradient of the first step against the
+    mean of the two half-batch D gradients computed here from the same
+    state and batches (``DP_GRAD_RTOL`` of its norm; the reduction itself
+    bit for bit against the ranks' own gradients); prints the
+    all-reduce share of a step and the ranks' combined images/s (a
+    correctness configuration: the ranks time-slice one card).
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -116,7 +138,8 @@ the counted run_id-8 train steps'; ``serve.launches``: the counted served
 requests'; ``run_id0.launches``: the counted run_id-0 steps';
 ``run_id8_reg``, ``run_id0_direct`` and ``render_grad``: phases 13-15's
 counted launches; ``loop``: phases 16-17's, the ``train()`` run's and its
-split; kernel 6's ``albedo``: its numbers at the albedo
+split; ``data_parallel``: phase 18's steps' and each phase-19 rank's
+per run; kernel 6's ``albedo``: its numbers at the albedo
 lookup's gradient), the card's name and power limit as nvidia-smi reports
 them, and the result line.
 """
@@ -1472,6 +1495,7 @@ class LoopProbe:
         self.step_launches = {k: 0 for k in counters}
         self.fid_launches = {k: 0 for k in counters}
         self.metrics, self.digests, self.before, self.state = [], {}, None, None
+        self.reduces = []  # the step's mean all-reduce calls (data parallel), per step
         self.recorded, self.checked, self.errs = {}, {}, {}
         self.in_fid = False
         self.spans = {"fid_sampling_s": [], "inception_s": [], "real_inception_s": [], "frechet_s": []}
@@ -1504,6 +1528,7 @@ class LoopProbe:
 
         from gif_tpu_torch.eval import fid as fid_mod
         from gif_tpu_torch.eval.sampling import FlameSampler
+        from gif_tpu_torch.parallel import collectives
         from gif_tpu_torch.train import checkpoint, loop
 
         probe = self
@@ -1531,10 +1556,11 @@ class LoopProbe:
                         probe.state = state
                         probe.before = {k: _param_snapshot(getattr(state, k))
                                         for k in ("generator", "discriminator", "g_ema")}
-                    i, c0 = state.step, probe._counts()
+                    i, c0, r0 = state.step, probe._counts(), collectives.mean_all_reduce.calls
                     probe.digests[i] = digest(batch)
                     state, m = probe._recorded("step", lambda: step(state, batch))
                     probe._add(probe.step_launches, c0)
+                    probe.reduces.append(collectives.mean_all_reduce.calls - r0)
                     probe.metrics.append((i, m))
                     return state, m
 
@@ -1859,7 +1885,378 @@ def train_loop(res, counters: dict, smi: str, bare_plain_s: float):
                      "fid_sampling_launches": a.fid_launches[name], "dataset_render_launches": render_launches[name],
                      "resume_launches": launches_b[name], "run_id0_launches": launches0[name],
                      "checked_launches": a.checked.get(kind, 0)}
-    return out, a.errs
+    return out, a.errs, loop_ips
+
+
+# The data-parallel phases 18-19: steps and cadences.  run_id 8 at full
+# width, global batch 16; R1 on the last of DP_STEPS steps.
+DP_STEPS = 5
+DP_RESUME_STEPS = 2
+DP_RUN0_STEPS = 2
+DP_WORLD = 2
+# The all-reduced D gradient against the mean of the half-batch gradients
+# computed apart, relative to its norm.  D's bf16 backward is not
+# deterministic on the card: one half-batch gradient computed twice in one
+# process differed by 0.96-1.2% of its norm on the H100, so the bar is
+# ~2.5x that spread (a fault of the reduction — a sum, one rank's half,
+# no division — reads 30% or more); the reduction itself is held bit for
+# bit against the ranks' own gradients.
+DP_GRAD_RTOL = 3e-2
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper by its counter name (each counts its launches)."""
+    from gif_tpu_torch.ops import activations, blur_cuda
+    from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
+
+    return {
+        "raster": raster_cuda.rasterize_with_attrs,
+        "sampler": sampler_cuda.grid_sample,
+        "fused_bias_lrelu": activations.fused_leaky_relu,
+        "fused_bias_lrelu_bwd": activations.fused_leaky_relu_backward,
+        "fir_blur": blur_cuda.blur4,
+        "fir_blur_vjp": blur_cuda.blur4_vjp,
+        "bilinear_scatter": scatter_cuda.scatter_bilinear,
+    }
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def param_digest(state) -> str:
+    """sha1 of the bytes of every parameter of G, D and the EMA, in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for m in (state.generator, state.discriminator, state.g_ema):
+        for p in m.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_config(run_id: int, **kw):
+    from gif_tpu_torch.train.config import get_config
+
+    return get_config(run_id, batch_size=TRAIN_BATCH, r1_interval=DP_STEPS, **kw)
+
+
+def train_nccl(res, counters: dict, smi: str, loop_ips: list) -> dict:
+    """Phase 18: ``train()`` over a process group of one rank on the NCCL
+    backend (the production backend) — run_id 8 at full width, batch 16, a
+    512-frame ``SyntheticRenderDataset``, 5 steps with R1 on the fifth, a
+    metrics row every step, the random-weight InceptionV3 FID on 512
+    samples at steps 0 and 5; every counter 0 just before, read just
+    after.  Checks the rows, the FIDs, three mean all-reduces a step (D's
+    gradient, G's, the metrics) and kernels 1-5 in the steps; prints the
+    plain steps' images/s beside phase 16's.  Returns {kind: launches}."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from gif_tpu_torch.data.pipeline import SyntheticRenderDataset
+    from gif_tpu_torch.eval.fid import FidComputer
+    from gif_tpu_torch.eval.inception import random_fid_params
+    from gif_tpu_torch.parallel import initialize_distributed, process_count
+    from gif_tpu_torch.train import loop
+
+    group = initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        log(f"phase nccl setup: backend {dist.get_backend(group)}, world {process_count(group)}, rank "
+            f"{dist.get_rank(group)}, card {torch.cuda.current_device()}")
+        cfg = dp_config(8, fid_every=DP_STEPS, checkpoint_every=1000)
+        with tempfile.TemporaryDirectory(prefix="gif_nccl_") as tmp:
+            ds = SyntheticRenderDataset(res, n=LOOP_DATASET, size=cfg.max_size, seed=0,
+                                        cache_dir=os.path.join(tmp, "synth"), max_tris_per_tile=res.n_faces)
+            fid_computer = FidComputer(random_fid_params(0), stats_dir=os.path.join(tmp, "fid_stats"))
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with LoopProbe(counters, record=False) as a:
+                loop.train(cfg, ds, res, os.path.join(tmp, "run"), total_iters=DP_STEPS, fid_computer=fid_computer,
+                           log_every=1, fid_n_samples=LOOP_DATASET, fid_real_samples=LOOP_DATASET,
+                           max_tris_per_tile=res.n_faces, group=group)
+                torch.cuda.synchronize()
+            run_s, launches = time.perf_counter() - t0, {k: fn.launches for k, fn in counters.items()}
+            rows = _csv_rows(os.path.join(tmp, "run", "8", "metrics.csv"))
+            grids = sorted(os.listdir(os.path.join(tmp, "run", "8", "sample", "8")))
+            del a.state, a.before
+    finally:
+        dist.destroy_process_group()
+    ips = [float(r["imgs_per_sec"]) for r in rows]
+    log(f"phase nccl run: {DP_STEPS} steps through train(group=<nccl, world 1>) in {run_s:.2f} s host clock (both "
+        f"FID sweeps included); rows {rows}; grids {grids}; FIDs {a.fids}; mean all-reduce calls per step "
+        f"{a.reduces}; launches: train() {launches}, steps {a.step_launches}, FID sampling {a.fid_launches}")
+    assert [r["step"] for r in rows] == [str(i) for i in range(1, DP_STEPS + 1)], rows
+    for r in rows:
+        assert all(np.isfinite(float(r[k])) for k in ("d_loss", "g_loss", "g_total", "imgs_per_sec", "fid")), r
+        assert float(r["render_overflow"]) == 0.0, r
+    assert [float(r["r1"]) > 0 for r in rows] == [False] * (DP_STEPS - 1) + [True], rows
+    assert len(a.fids) == 2 and all(np.isfinite(f) for f in a.fids), a.fids
+    assert [g[:6] for g in grids] == ["000000", f"{DP_STEPS:06d}"], grids
+    assert a.reduces == [3] * DP_STEPS, a.reduces
+    assert all(a.step_launches[KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), a.step_launches
+    plain = ips[1:DP_STEPS - 1]
+    log(f"phase nccl timings: images/s of the plain steps 2-{DP_STEPS - 1} {plain} (median "
+        f"{float(np.median(plain)):.2f}) against phase 16's single-process 5-step windows {loop_ips} (median "
+        f"{float(np.median(loop_ips)):.2f}): {100 * (float(np.median(plain)) / float(np.median(loop_ips)) - 1):+.2f} %; "
+        f"step 1 {ips[0]:.2f}, the R1 step {ips[-1]:.2f} images/s; on {smi}")
+    return {kind: a.step_launches[meta["name"]] for kind, meta in KERNELS.items()}
+
+
+class _FirstAdamCall(Exception):
+    """Raised by the wrapped Adam call to stop a step once D's gradient is
+    in hand (nothing of the state has changed yet)."""
+
+    def __init__(self, grads):
+        self.grads = grads
+
+
+def dp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Phase 19, one rank (spawned): joins the gloo group, then through
+    ``train()`` run_id 8 at full width (global batch 16, 8 a rank) for
+    ``DP_STEPS`` steps with R1 on the last, the random-weight FID baseline
+    at step 0 (rank 0 sweeps), a checkpoint at ``DP_STEPS``; a resume of
+    both ranks from it to ``DP_STEPS + DP_RESUME_STEPS``; then
+    ``DP_RUN0_STEPS`` steps of run_id 0.  Writes to ``tmp/rank{rank}.pt``:
+    the parameter digest after every step, each run's kernel launches
+    (counters 0 just before each, read just after) and ``used_samples``,
+    how often it logged a row or saved a grid, synchronized host-clock
+    spans of each step and of each gradient all-reduce, and its first
+    step's batch and the all-reduced D gradient that step handed Adam."""
+    import torch
+    import torch.distributed as dist
+
+    from gif_tpu_torch.data.pipeline import SyntheticRenderDataset
+    from gif_tpu_torch.eval.fid import FidComputer
+    from gif_tpu_torch.eval.inception import random_fid_params
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.parallel import initialize_distributed
+    from gif_tpu_torch.train import loop
+    from gif_tpu_torch.train import step as step_mod
+    from gif_tpu_torch.utils.viz import VisualizationSaver
+
+    group = initialize_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        counters = kernel_counters()
+        res = synthetic_flame_resources()
+        cfg = dp_config(8, fid_every=1000, checkpoint_every=DP_STEPS)
+        ds = SyntheticRenderDataset(res, n=LOOP_DATASET, size=cfg.max_size, seed=0,
+                                    cache_dir=os.path.join(tmp, "synth"), max_tris_per_tile=res.n_faces)
+        fid_computer = FidComputer(random_fid_params(0), stats_dir=os.path.join(tmp, "fid_stats"))
+        out = {"digests": [], "step_s": [], "reduce_s": [], "logged": 0, "grids": 0, "used": [], "launches": []}
+        saved = []
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            saved.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def counted(key):
+            def make(orig):
+                def call(*a, **kw):
+                    out[key] += 1
+                    return orig(*a, **kw)
+                return call
+            return make
+
+        def timed_reduce(orig):
+            def call(tensors, group=None):
+                if "local_d_grad" not in out:  # the first call: D's gradient, this rank's own
+                    out["local_d_grad"] = [t.detach().cpu() for t in tensors]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(tensors, group)
+                torch.cuda.synchronize()
+                out["reduce_s"].append(time.perf_counter() - t0)
+            return call
+
+        def adam(orig):
+            def call(opt, params, grads):
+                if "d_grad" not in out:
+                    out["d_grad"] = [g.detach().cpu() for g in grads]
+                return orig(opt, params, grads)
+            return call
+
+        def make_train_step(orig):
+            def make(*a, **kw):
+                step = orig(*a, **kw)
+
+                def wrapped(state, batch):
+                    if "batch" not in out:
+                        out["batch"] = {k: np.asarray(v).copy() for k, v in batch.items()}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    out["step_s"].append(time.perf_counter() - t0)
+                    out["digests"].append(param_digest(state))
+                    return state, m
+                return wrapped
+            return make
+
+        patch(loop, "make_train_step", make_train_step)
+        patch(step_mod, "mean_all_reduce", timed_reduce)
+        patch(step_mod, "_adam_step", adam)
+        patch(loop.MetricsLogger, "log", counted("logged"))
+        patch(VisualizationSaver, "save_samples", counted("grids"))
+        kw = dict(log_every=1, max_tris_per_tile=res.n_faces, group=group)
+        runs = (
+            (cfg, "run", DP_STEPS, dict(fid_computer=fid_computer, fid_n_samples=LOOP_DATASET,
+                                        fid_real_samples=LOOP_DATASET)),
+            (cfg, "run", DP_STEPS + DP_RESUME_STEPS, {}),
+            (dp_config(0, checkpoint_every=1000), "run0", DP_RUN0_STEPS, {}),
+        )
+        try:
+            for c, name, total, extra in runs:
+                for fn in counters.values():
+                    fn.launches = 0
+                state = loop.train(c, ds, res, os.path.join(tmp, name), total_iters=total, **kw, **extra)
+                torch.cuda.synchronize()
+                out["launches"].append({k: fn.launches for k, fn in counters.items()})
+                out["used"].append(state.used_samples)
+                del state
+        finally:
+            for owner, name, orig in reversed(saved):
+                setattr(owner, name, orig)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_two_ranks(res, smi: str) -> dict:
+    """Phase 19: two data-parallel ranks on the one card, spawned with the
+    gloo backend (NCCL refuses two ranks on one device), each running
+    :func:`dp_rank`; a rank that raises fails the phase.  Checks: the
+    ranks' G, D and EMA bit-equal after every step; rows and grids from
+    rank 0 only; ``used_samples`` = steps x 16; kernels 1-5 launched on
+    each rank in both run_id-8 runs and kernel 6 too in run_id 0; the
+    all-reduced D gradient of the first step against the mean of the two
+    half-batch D gradients computed here from the same fresh state and the
+    ranks' batches (run_id 8 draws nothing in that step), within
+    ``DP_GRAD_RTOL`` of the gradient's norm beside the card's own spread
+    (each half computed twice), and the all-reduced gradient bit-equal to
+    the mean of the ranks' own.  Prints the all-reduce share
+    of the ranks' steps (synchronized host-clock spans) and their combined
+    images/s — a correctness configuration: two ranks time-slice one card
+    and gloo stages every CUDA tensor through the host.  Returns {kind:
+    {"rank_launches": ..., "rank_run_id0_launches": ...}}."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from gif_tpu_torch.data.pipeline import SyntheticRenderDataset
+    from gif_tpu_torch.train import step as step_mod
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    cfg = dp_config(8, fid_every=1000, checkpoint_every=DP_STEPS)
+    with tempfile.TemporaryDirectory(prefix="gif_dp2_") as tmp:
+        # Rendered once here; the ranks load it from the cache.
+        SyntheticRenderDataset(res, n=LOOP_DATASET, size=cfg.max_size, seed=0, cache_dir=os.path.join(tmp, "synth"),
+                               max_tris_per_tile=res.n_faces)
+        log(f"phase two ranks: spawning {DP_WORLD} ranks, backend gloo (explicit: NCCL refuses two ranks on one "
+            f"card), one card")
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank, args=(DP_WORLD, free_port(), tmp), nprocs=DP_WORLD, join=True,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+        rows = _csv_rows(os.path.join(tmp, "run", "8", "metrics.csv"))
+        grids = sorted(os.listdir(os.path.join(tmp, "run", "8", "sample", "8")))
+        ckpts = sorted(os.listdir(os.path.join(tmp, "run", "8", "checkpoint")))
+    r0, r1 = ranks
+    n8 = DP_STEPS + DP_RESUME_STEPS
+    log(f"phase two ranks: {wall:.2f} s wall (spawn, set-up, the FID baseline on rank 0, {n8} + {DP_RUN0_STEPS} "
+        f"steps); rows {rows}; grids {grids}; checkpoints {ckpts}; rank 0 logged {r0['logged']} rows and saved "
+        f"{r0['grids']} grids, rank 1 {r1['logged']} and {r1['grids']}; used_samples {r0['used']} / {r1['used']}; "
+        f"digests equal after every step: {r0['digests'] == r1['digests']} ({len(r0['digests'])} steps); "
+        f"launches rank 0 {r0['launches']}, rank 1 {r1['launches']}")
+    assert r0["digests"] == r1["digests"] and len(r0["digests"]) == n8 + DP_RUN0_STEPS, (r0["digests"], r1["digests"])
+    assert len(set(r0["digests"])) == len(r0["digests"]), "a step left the parameters unchanged"
+    assert (r0["logged"], r0["grids"]) == (n8 + DP_RUN0_STEPS, 1) and (r1["logged"], r1["grids"]) == (0, 0)
+    assert [r["step"] for r in rows] == [str(i) for i in range(1, n8 + 1)], rows
+    assert [g[:6] for g in grids] == ["000000"] and f"{DP_STEPS:09d}.pt" in ckpts, (grids, ckpts)
+    assert [float(r["r1"]) > 0 for r in rows][:DP_STEPS] == [False] * (DP_STEPS - 1) + [True], rows
+    for r in (r0, r1):
+        assert r["used"] == [TRAIN_BATCH * DP_STEPS, TRAIN_BATCH * n8, TRAIN_BATCH * DP_RUN0_STEPS], r["used"]
+        for launches in r["launches"][:2]:
+            assert all(launches[KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), launches
+        assert all(n > 0 for n in r["launches"][2].values()), r["launches"][2]
+
+    # The all-reduced D gradient against the mean of the two half-batch
+    # gradients: the fresh state train() builds (seed = run_id), each
+    # rank's first batch, the step stopped at D's Adam call.
+    state = create_train_state(cfg, seed=cfg.run_id)
+    step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces)
+    orig = step_mod._adam_step
+
+    def stop(opt, params, grads):
+        raise _FirstAdamCall([g.detach().cpu() for g in grads])
+
+    def flat(grads):
+        return torch.cat([g.reshape(-1) for g in grads])
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    # Each half twice: the second is a control, the card's own spread
+    # between two computations of one gradient.
+    halves = [[], []]
+    step_mod._adam_step = stop
+    try:
+        for rep in range(2):
+            for r in ranks:
+                try:
+                    step(state, r["batch"])
+                except _FirstAdamCall as c:
+                    halves[rep].append(flat(c.grads))
+    finally:
+        step_mod._adam_step = orig
+    assert [len(h) for h in halves] == [DP_WORLD, DP_WORLD] and state.step == 0
+    want = (halves[0][0] + halves[0][1]) / 2
+    got0, got1 = flat(r0["d_grad"]), flat(r1["d_grad"])
+    local = [flat(r["local_d_grad"]) for r in ranks]
+    reduced_exact = torch.equal(got0, (local[0] + local[1]) / 2)
+    control = [rel(halves[1][i], halves[0][i]) for i in range(DP_WORLD)]
+    local_vs_parent = [rel(local[i], halves[0][i]) for i in range(DP_WORLD)]
+    log(f"phase two ranks D gradient ({want.numel()} values): all-reduced on rank 0 == rank 1: "
+        f"{torch.equal(got0, got1)}; == (local 0 + local 1) / 2 bit for bit: {reduced_exact}; all-reduced vs the "
+        f"mean of the half-batch gradients computed here |diff| / |mean| {rel(got0, want):.3g} (max |diff| "
+        f"{float((got0 - want).abs().max()):.3g} of max |mean| {float(want.abs().max()):.3g}); each rank's local "
+        f"gradient vs the same half computed here {local_vs_parent}; the same half computed twice here {control} "
+        f"(tol {DP_GRAD_RTOL} on the all-reduced gradient vs the mean)")
+    assert torch.equal(got0, got1) and reduced_exact
+    assert rel(got0, want) <= DP_GRAD_RTOL, (rel(got0, want), DP_GRAD_RTOL)
+
+    # Timings of the run_id-8 steps after the first (whose call pays
+    # set-up): each rank's synchronized step spans and, inside them, its
+    # three all-reduces a step (D's gradient, G's, the metrics).
+    step_ms, reduce_ms, shares, ips = [], [], [], []
+    for r in ranks:
+        assert len(r["reduce_s"]) == 3 * len(r["step_s"]), (len(r["reduce_s"]), len(r["step_s"]))
+        steps, reds = r["step_s"][1:n8], r["reduce_s"][3:3 * n8]
+        step_ms.append(1e3 * float(np.median(steps)))
+        reduce_ms.append([1e3 * float(np.median(reds[j::3])) for j in range(3)])
+        shares.append(100 * sum(reds) / sum(steps))
+        ips.append(TRAIN_BATCH / float(np.median(steps)))
+    log(f"phase two ranks timings (a correctness configuration, not scaling: two ranks time-slice one card and "
+        f"gloo stages each gradient through the host): steps 2-{n8} median {step_ms} ms per rank, combined "
+        f"{ips} images/s (global batch {TRAIN_BATCH} a step); all-reduce medians (D gradient, G gradient, "
+        f"metrics) {reduce_ms} ms; all-reduce share of the step time {shares} % (synchronized host-clock "
+        f"spans); rank 1's first all-reduce, spent waiting for rank 0's FID baseline sweep (the rank-0 eval "
+        f"wait), {r1['reduce_s'][0]:.2f} s against rank 0's {r0['reduce_s'][0]:.3f} s; on {smi}")
+    return {kind: {"rank_launches": [r["launches"][0][meta["name"]] for r in ranks],
+                   "rank_resume_launches": [r["launches"][1][meta["name"]] for r in ranks],
+                   "rank_run_id0_launches": [r["launches"][2][meta["name"]] for r in ranks]}
+            for kind, meta in KERNELS.items()}
 
 
 def check_branches_against_cpu_plain():
@@ -1945,8 +2342,6 @@ def main() -> int:
     from gif_tpu_torch import kernels
     from gif_tpu_torch.eval.sampling import load_generator_params
     from gif_tpu_torch.flame.resources import synthetic_flame_resources
-    from gif_tpu_torch.ops import activations, blur_cuda
-    from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
     from gif_tpu_torch.serve import GifServer
     from gif_tpu_torch.train.config import get_config
 
@@ -1979,15 +2374,7 @@ def main() -> int:
     log(f"phase setup: run_id 8, {cfg.max_size} px, max_channels {cfg.max_channels}, "
         f"vocab {cfg.embedding_vocab_size}, {cfg.compute_dtype}, mesh {res.n_vertices} vertices / "
         f"{res.n_faces} faces, batch 8: {time.perf_counter() - t0:.2f} s")
-    counters = {
-        "raster": raster_cuda.rasterize_with_attrs,
-        "sampler": sampler_cuda.grid_sample,
-        "fused_bias_lrelu": activations.fused_leaky_relu,
-        "fused_bias_lrelu_bwd": activations.fused_leaky_relu_backward,
-        "fir_blur": blur_cuda.blur4,
-        "fir_blur_vjp": blur_cuda.blur4_vjp,
-        "bilinear_scatter": scatter_cuda.scatter_bilinear,
-    }
+    counters = kernel_counters()
     serve_kernels = [KERNELS[k]["name"] for k in ("raster", "sampler", "flr", "blur")]
     try:
         t0 = time.perf_counter()
@@ -2127,7 +2514,13 @@ def main() -> int:
     launches_rg, albedo = check_render_gradient(res, counters)
 
     # --- phases 16-17: the training job through train(), resume, FID, run_id 0 ---
-    loop_parts, errs_loop = train_loop(res, counters, smi, bare_plain_s)
+    loop_parts, errs_loop, loop_ips = train_loop(res, counters, smi, bare_plain_s)
+
+    # --- phase 18: train() over an NCCL process group of one rank ---
+    nccl_parts = train_nccl(res, counters, smi, loop_ips)
+
+    # --- phase 19: two data-parallel ranks (gloo) on the one card ---
+    dp_parts = train_two_ranks(res, smi)
 
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
@@ -2153,6 +2546,7 @@ def main() -> int:
         r["run_id0_direct"] = {"launches": launches_dg[meta["name"]], "warmup_launches": warm_dg[kind]}
         r["render_grad"] = {"launches": launches_rg[meta["name"]]}
         r["loop"] = loop_parts[kind]
+        r["data_parallel"] = {"nccl_launches": nccl_parts[kind], **dp_parts[kind]}
         if kind == "scatter":
             r["albedo"] = albedo
         r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),

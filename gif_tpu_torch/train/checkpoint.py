@@ -7,6 +7,11 @@ loop counters, so a resumed run continues exactly.  A save writes a
 temporary file and renames it into place (``os.replace``), so a crash
 mid-write never leaves a truncated checkpoint under a step's name; the
 oldest files beyond ``max_to_keep`` are removed.
+
+Under data parallelism (a process ``group``) rank 0 writes, every rank
+waits at a barrier until the file is in place, and every rank restores
+the same file — the semantics the JAX package's loop gets from Orbax.
+The ranks share the checkpoint directory's file system.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from gif_tpu_torch.parallel.mesh import is_main_process
 from gif_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
@@ -24,13 +31,15 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 
 class CheckpointManager:
     """Saves every ``save_every`` steps (the reference's cadence: 1000),
-    keeps the newest ``max_to_keep``."""
+    keeps the newest ``max_to_keep``; with a process ``group``, saves are
+    collective (rank 0 writes, all ranks return once it is written)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5, save_every: int = 1000):
+    def __init__(self, directory: str, max_to_keep: int = 5, save_every: int = 1000, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_every = save_every
+        self.group = group
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step:09d}.pt")
@@ -47,7 +56,13 @@ class CheckpointManager:
     def save(self, state: TrainState) -> None:
         """Write ``state`` under its step, unless that step is saved
         already (as Orbax does), then drop the oldest beyond
-        ``max_to_keep``."""
+        ``max_to_keep``.  With a group: on rank 0, then a barrier."""
+        if is_main_process(self.group):
+            self._write(state)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _write(self, state: TrainState) -> None:
         final = self.path(state.step)
         if os.path.exists(final):
             return

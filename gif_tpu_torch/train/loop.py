@@ -1,5 +1,5 @@
 """The training loop: data -> step -> metrics / FID / checkpoints (port of
-:mod:`gif_tpu.train.loop`, one process on one device).
+:mod:`gif_tpu.train.loop`).
 
 As the reference loop runs it: FID on the accumulated FLAME fits every
 ``fid_every`` steps (and an untrained baseline at step 0), a 10x5 sample
@@ -8,7 +8,15 @@ steps and a final one, and one ``metrics.csv`` row every ``log_every``
 steps.  A run resumes from its latest checkpoint and replays exactly the
 batches and random draws an uninterrupted run would have seen: batches
 are counter-based (``data_iterator(start_step=...)``) and the step's
-generator is reseeded from (``seed``, step) before every step.
+generator is reseeded from (``seed``, step, rank) before every step.
+
+Data parallel (a process ``group``, one rank per GPU): every rank runs
+this loop in lockstep on ``batch_size / world`` rows a step from its own
+data stream, seeded (``seed``, rank), with its own draws; the step
+all-reduces the gradients.  Rank 0 alone logs, prints, draws the sample
+grids and measures FID, on every rank's accumulated fits pooled by
+:func:`allgather_rows`; it writes the checkpoints, which every rank
+restores.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ import torch
 from gif_tpu_torch.data.pipeline import FlameDataset, data_iterator
 from gif_tpu_torch.device import resolve_device
 from gif_tpu_torch.eval.sampling import FlameSampler
+from gif_tpu_torch.parallel.collectives import allgather_rows
+from gif_tpu_torch.parallel.mesh import process_count, process_index
 from gif_tpu_torch.train.checkpoint import CheckpointManager
 from gif_tpu_torch.train.config import TrainConfig
-from gif_tpu_torch.train.state import create_train_state
+from gif_tpu_torch.train.state import create_train_state, replicate_train_state, warm_start_from_converted
 from gif_tpu_torch.train.step import make_train_step
 from gif_tpu_torch.utils.viz import VisualizationSaver
 
@@ -67,10 +77,11 @@ class MetricsLogger:
             csv.DictWriter(f, fieldnames=self.fields, restval="").writerow(row)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s random draws: a hash of (1234 + seed,
-    step), 32 bits (a CPU ``torch.Generator`` keeps only 32)."""
-    return int(np.random.SeedSequence([1234 + seed, step]).generate_state(1)[0])
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of rank ``rank``'s random draws at step ``step``: a hash
+    of (1234 + seed, step, rank), 32 bits (a CPU ``torch.Generator`` keeps
+    only 32)."""
+    return int(np.random.SeedSequence([1234 + seed, step, rank]).generate_state(1)[0])
 
 
 def train(
@@ -88,6 +99,7 @@ def train(
     seed: Optional[int] = None,
     device=None,
     max_tris_per_tile: Optional[int] = None,
+    group=None,
 ):
     """Run training to ``total_iters`` steps; returns the train state.
 
@@ -99,12 +111,13 @@ def train(
     against the first ``fid_real_samples`` real frames.
     ``max_tris_per_tile`` is the raster's tile capacity in the step and the
     sampler (None: sized from the mesh).  ``device`` is CUDA unless the
-    caller passes another."""
-    if converted_ckpt is not None:
-        raise NotImplementedError(
-            "warm start from a converted reference checkpoint needs tools/convert_checkpoint, "
-            "which the port does not have yet"
-        )
+    caller passes another.  ``converted_ckpt`` (a pickle of converted
+    reference weights, :mod:`gif_tpu_torch.tools.convert_checkpoint`)
+    warm-starts a run that has no checkpoint of its own yet.
+
+    With a process ``group`` every rank calls this with the same arguments
+    (``fid_computer`` given on every rank or on none; ``device`` its own);
+    ``cfg.batch_size`` is the global batch."""
     if cfg.apply_texture_space_interpolation_loss and (
         getattr(dataset, "horizontal_flip", False) or getattr(dataset, "random_crop", False)
     ):
@@ -112,23 +125,38 @@ def train(
             "flip/crop augmentation invalidates the FLAME labels that the texture-interpolation "
             "loss consumes; disable the augmentation or the loss"
         )
+    world, rank = (process_count(group), process_index(group)) if group is not None else (1, 0)
+    if cfg.batch_size % world:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by {world} processes")
+    local_bs = cfg.batch_size // world
+    is_main = rank == 0
     dev = resolve_device(device)
     run_dir = os.path.join(out_dir, str(cfg.run_id))
-    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoint"), save_every=cfg.checkpoint_every)
-    logger = MetricsLogger(os.path.join(run_dir, "metrics.csv"))
-    viz = VisualizationSaver(run_dir, cfg.run_id)
+    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoint"), save_every=cfg.checkpoint_every, group=group)
+    logger = MetricsLogger(os.path.join(run_dir, "metrics.csv")) if is_main else None
+    viz = VisualizationSaver(run_dir, cfg.run_id) if is_main else None
 
     seed = cfg.run_id if seed is None else seed
     state = create_train_state(cfg, seed=seed, device=dev)
+    if converted_ckpt is not None and ckpt.latest_step() is None:
+        # The reference's fine-tune path; a checkpoint of the run itself
+        # takes precedence.
+        state = warm_start_from_converted(state, converted_ckpt)
+        if is_main:
+            print(f"warm-started params from {converted_ckpt}")
     if resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
-        print(f"restored checkpoint at step {state.step}")
+        if is_main:
+            print(f"restored checkpoint at step {state.step}")
+    if group is not None:
+        state = replicate_train_state(state, group)
     step_rng = torch.Generator()
-    step_fn = make_train_step(cfg, res, device=dev, max_tris_per_tile=max_tris_per_tile, generator=step_rng)
+    step_fn = make_train_step(cfg, res, device=dev, max_tris_per_tile=max_tris_per_tile, generator=step_rng,
+                              group=group)
     sampler = FlameSampler(
         cfg, res, state.g_ema, batch_size=min(cfg.batch_size, 16), eye_center=False,
         max_tris_per_tile=max_tris_per_tile, device=dev,
-    )
+    ) if is_main else None
 
     start = state.step
     fid = float("nan")
@@ -137,31 +165,37 @@ def train(
 
     def run_eval(i):
         """FID and the reconstruction error of the EMA generator and the
-        sample grid; ``i`` is the loop index (artifacts are stamped ``i +
-        1``; ``-1`` is the untrained baseline)."""
+        sample grid, on rank 0 over every rank's accumulated fits; ``i`` is
+        the loop index (artifacts are stamped ``i + 1``; ``-1`` is the
+        untrained baseline)."""
         nonlocal fid, recon, t_last
         flame_10k, idx_10k = dataset.get_10k_flame_params()
+        if world > 1:
+            flame_10k, idx_10k = allgather_rows((flame_10k, idx_10k), max_rows=fid_n_samples, group=group)
         flame_10k = flame_10k[:fid_n_samples]
         idx_10k = idx_10k[: len(flame_10k)]
-        # Streamed: each generated batch stays on the device and only its
-        # pool3 activations come back; the uint8 real frames are scaled per
-        # chunk inside the Inception sweep.
-        fid = fid_computer.get_fid_streaming(
-            sampler.sample_batches_device(flame_10k, idx_10k),
-            real_images01=dataset.images[:fid_real_samples],
-        )
-        if getattr(dataset, "conditionally_exact", False):
-            # Every frame is a function of its own conditioning row, so the
-            # EMA generator's pixel error against it measures progress.
-            k = min(RECON_SAMPLES, len(dataset))
-            gt = (dataset.images[:k].astype(np.float32) / 255.0) * 2.0 - 1.0
-            out = sampler.sample(
-                np.asarray(dataset.flame_params[:k], np.float32), np.arange(k, dtype=np.int32)
-            )[0]
-            recon = float(np.mean((out - gt) ** 2))
-        if viz.flame_params is None:
-            viz.set_flame_params(flame_10k[:50], idx_10k[:50])
-        viz.save_samples(i, lambda f, ix: sampler.sample(f, ix)[0], resolution=cfg.max_size, fid=fid)
+        if is_main:
+            # Streamed: each generated batch stays on the device and only
+            # its pool3 activations come back; the uint8 real frames are
+            # scaled per chunk inside the Inception sweep.  The other ranks
+            # wait in the next step's all-reduce.
+            fid = fid_computer.get_fid_streaming(
+                sampler.sample_batches_device(flame_10k, idx_10k),
+                real_images01=dataset.images[:fid_real_samples],
+            )
+            if getattr(dataset, "conditionally_exact", False):
+                # Every frame is a function of its own conditioning row, so
+                # the EMA generator's pixel error against it measures
+                # progress.
+                k = min(RECON_SAMPLES, len(dataset))
+                gt = (dataset.images[:k].astype(np.float32) / 255.0) * 2.0 - 1.0
+                out = sampler.sample(
+                    np.asarray(dataset.flame_params[:k], np.float32), np.arange(k, dtype=np.int32)
+                )[0]
+                recon = float(np.mean((out - gt) ** 2))
+            if viz.flame_params is None:
+                viz.set_flame_params(flame_10k[:50], idx_10k[:50])
+            viz.save_samples(i, lambda f, ix: sampler.sample(f, ix)[0], resolution=cfg.max_size, fid=fid)
         # The sweep is not charged to the next window's images/s.
         t_last = time.perf_counter()
 
@@ -171,17 +205,17 @@ def train(
         dataset.accumulate_batches_of_flm(np.asarray(dataset.flame_params[:fid_n_samples], np.float32))
         run_eval(-1)
 
-    it = data_iterator(dataset, cfg.batch_size, seed=(seed, 0), start_step=start)
+    it = data_iterator(dataset, local_bs, seed=(seed, rank), start_step=start)
     try:
         for i in range(start, total_iters):
             batch = next(it)
             # The true fits condition FID: augmented labels are crop-zeroed
             # or flip-sentinelled.
             dataset.accumulate_batches_of_flm(batch.get("flame_render", batch["flame"]))
-            step_rng.manual_seed(step_seed(seed, i))
+            step_rng.manual_seed(step_seed(seed, i, rank))
             state, metrics = step_fn(state, batch)
 
-            if (i + 1) % log_every == 0:
+            if (i + 1) % log_every == 0 and is_main:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from gif_tpu_torch import constants as cnst
 from gif_tpu_torch.models.texture_space import flame_texture_space
+from gif_tpu_torch.parallel.collectives import differentiable_mean
 from gif_tpu_torch.render.renderer import render_tex_and_normal
 from gif_tpu_torch.utils.image import resize_bilinear
 
@@ -51,7 +52,7 @@ def r1_penalty(d_apply, real_image: torch.Tensor, condition, weight: float = 5.0
 
 
 def path_length_penalty(g_apply_z, z: torch.Tensor, pl_mean: torch.Tensor, decay: float = 0.01,
-                        noise=None, generator=None):
+                        noise=None, generator=None, group=None):
     """StyleGAN2's path-length penalty on the z -> image Jacobian.
 
     ``g_apply_z(z) -> images`` (B, H, W, 3); ``z`` (B, 512); ``pl_mean`` the
@@ -60,7 +61,9 @@ def path_length_penalty(g_apply_z, z: torch.Tensor, pl_mean: torch.Tensor, decay
     when None), scaled by ``1 / sqrt(images.numel())``.  Returns (penalty,
     new_pl_mean), both differentiable in G's parameters: as in the JAX
     package, ``new_pl_mean`` is not detached, so the gradient also reaches
-    G through it."""
+    G through it.  With a process ``group`` the mean length is averaged
+    across its ranks before the running-mean update (differentiably), so
+    every replica carries the same ``pl_mean``."""
     z = z.detach().requires_grad_(True)
     images = g_apply_z(z)
     if noise is None:
@@ -68,7 +71,7 @@ def path_length_penalty(g_apply_z, z: torch.Tensor, pl_mean: torch.Tensor, decay
     noise = torch.as_tensor(noise, dtype=images.dtype, device=images.device)
     noise = noise / float(np.sqrt(np.prod(images.shape, dtype=np.float64)))
     (grads,) = torch.autograd.grad(images, z, noise, create_graph=True)
-    lengths = torch.mean(torch.sqrt(torch.sum(grads**2, dim=1)))
+    lengths = differentiable_mean(torch.mean(torch.sqrt(torch.sum(grads**2, dim=1))), group)
     new_mean = pl_mean + decay * (lengths - pl_mean)
     return (lengths - new_mean) ** 2, new_mean
 

@@ -7,18 +7,26 @@ that each step replaces).  Adam follows StyleGAN2's reg-ratio
 hyperparameters (``TrainConfig.g_lr`` / ``g_betas`` / ``d_lr`` /
 ``d_betas``) with eps 1e-8, optax ``adam``'s update rule: ``-lr * m_hat /
 (sqrt(v_hat) + eps)``.
+
+A run starts from a fresh state, a converted reference checkpoint
+(:func:`warm_start_from_converted`) or its own checkpoint; under data
+parallelism rank 0's state is then broadcast to every rank
+(:func:`replicate_train_state`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import pickle
 
 import torch
 
 from gif_tpu_torch.device import resolve_device, set_tf32_policy
 from gif_tpu_torch.models.discriminator import Discriminator
 from gif_tpu_torch.models.generator import StyledGenerator
+from gif_tpu_torch.parallel.mesh import process_count, replicate
+from gif_tpu_torch.tools.convert_params import convert_discriminator_params, convert_generator_params
 from gif_tpu_torch.train.config import TrainConfig
 
 ADAM_EPS = 1e-8
@@ -123,4 +131,64 @@ def load_train_state(state: TrainState, converted: dict) -> TrainState:
     state.step = int(converted["step"])
     state.pl_mean = torch.tensor(float(converted["pl_mean"]), device=state.pl_mean.device)
     state.used_samples = int(converted["used_samples"])
+    return state
+
+
+def _check_shapes(got: dict, module: torch.nn.Module, what: str) -> None:
+    """Every tensor of the converted ``got`` must exist in ``module``'s
+    state_dict with the same shape and vice versa; one error names every
+    offending leaf."""
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    have = {k: tuple(v.shape) for k, v in got.items()}
+    problems = [f"  {k}: checkpoint has {v}, model wants {want[k]}" for k, v in have.items()
+                if k in want and v != want[k]]
+    problems += [f"  {k}: missing from checkpoint" for k in want if k not in have]
+    problems += [f"  {k}: unexpected in checkpoint" for k in have if k not in want]
+    if problems:
+        raise ValueError(
+            f"{what}: converted checkpoint does not fit this config "
+            f"({len(problems)} problem(s)):\n" + "\n".join(problems)
+        )
+
+
+@torch.no_grad()
+def warm_start_from_converted(state: TrainState, path: str) -> TrainState:
+    """Seed ``state`` (fresh, from :func:`create_train_state`) in place
+    with a converted reference checkpoint: the pickle of flax-layout numpy
+    trees ``g_params`` / ``g_ema_params`` / ``d_params`` / ``buffers``
+    that :mod:`gif_tpu_torch.tools.convert_checkpoint` (or the JAX
+    package's) writes — the reference's fine-tune path (run_id 29 resumes
+    a released ``.model``).  The optimizers stay fresh and the counters
+    zero.  Raises ``ValueError`` naming every leaf whose shape does not
+    fit.  Only unpickle files this project wrote."""
+    with open(path, "rb") as f:
+        trees = pickle.load(f)
+    for key in ("g_params", "g_ema_params", "d_params", "buffers"):
+        if key not in trees:
+            raise ValueError(f"{path}: missing tree {key!r}")
+    parts = (
+        (state.generator, convert_generator_params(trees["g_params"], trees["buffers"]), "generator"),
+        (state.g_ema, convert_generator_params(trees["g_ema_params"], trees["buffers"]), "EMA generator"),
+        (state.discriminator, convert_discriminator_params(trees["d_params"]), "discriminator"),
+    )
+    for module, sd, what in parts:
+        _check_shapes(sd, module, f"{path} ({what})")
+    for module, sd, _ in parts:
+        module.load_state_dict(sd)
+    state.g_ema.embedding = state.generator.embedding
+    return state
+
+
+@torch.no_grad()
+def replicate_train_state(state: TrainState, group=None) -> TrainState:
+    """Broadcast rank 0's state — networks, EMA, both Adam states,
+    ``pl_mean`` and the counters — to every rank of ``group``, in place,
+    so the replicas start equal whether fresh, warm-started or restored.
+    A no-op with one rank."""
+    if process_count(group) == 1:
+        return state
+    counters = torch.tensor([state.step, state.used_samples], dtype=torch.int64, device=state.pl_mean.device)
+    replicate(state.generator, state.g_ema, state.discriminator, state.g_opt, state.d_opt, state.pl_mean,
+              counters, group=group)
+    state.step, state.used_samples = (int(v) for v in counters.tolist())
     return state

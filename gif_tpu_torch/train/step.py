@@ -39,6 +39,13 @@ program over 2B - 1 rows, and G's gradient is one backward of ``g_adv +
 rest + scale * interp`` through the kept forward (``rest`` with its own
 forwards).
 
+Data parallel (``group``): each rank steps on its own slice of the global
+batch with its own draws; D's and G's gradients are mean-all-reduced
+after each backward and before each Adam step, the path length is
+averaged across ranks before the running-mean update, and the metrics
+are averaged — the JAX package's ``shard_map`` step with ``lax.pmean``.
+Minibatch stddev and the interpolation pairs stay within a rank's rows.
+
 Every kernel of the path launches on the card: the rasterizer and the
 albedo sampler in the render, the fused bias+lrelu forward and backward and
 the FIR blur and its VJP in G and D (R1's and the regularizers'
@@ -53,6 +60,8 @@ import torch
 from gif_tpu_torch import constants as cnst
 from gif_tpu_torch.data.augment import same_padding_crop_torch
 from gif_tpu_torch.device import resolve_device, second_order_safe, set_tf32_policy
+from gif_tpu_torch.parallel.collectives import mean_all_reduce
+from gif_tpu_torch.parallel.mesh import process_count
 from gif_tpu_torch.render.renderer import RenderedMaps, render_tex_and_normal
 from gif_tpu_torch.train import losses as L
 from gif_tpu_torch.train.config import TrainConfig
@@ -213,6 +222,7 @@ def make_train_step(
     face_region_mask=None,
     fuse_interp: bool = True,
     generator: torch.Generator | None = None,
+    group=None,
 ):
     """Build ``train_step(state, batch, draws=None) -> (state, metrics)``.
 
@@ -255,6 +265,13 @@ def make_train_step(
     ``device`` is CUDA unless the caller passes another; without a card the
     default raises.  ``max_tris_per_tile=None`` sizes the raster's tile
     capacity from the mesh.
+
+    With a process ``group`` (:mod:`gif_tpu_torch.parallel`) ``batch`` is
+    this rank's slice of the global batch and ``generator`` this rank's
+    own stream; each gradient is mean-all-reduced across the ranks before
+    its Adam step, the metrics are averaged across them, and
+    ``used_samples`` grows by the global batch.  Every rank must call the
+    step in lockstep with a replica of the same state.
     """
     reg = cfg.gen_reg_type.lower()
     if reg not in GEN_REG_TYPES:
@@ -262,6 +279,7 @@ def make_train_step(
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_tf32_policy()
+    world = process_count(group) if group is not None else 1
     g_interval, g_iters = g_schedule(cfg)
     step_idx = cfg.max_step
     interp_on = cfg.apply_texture_space_interpolation_loss
@@ -306,8 +324,10 @@ def make_train_step(
 
         if interp_on and b < 3:
             raise ValueError(
-                "texture-space interpolation loss pairs interpolants within a "
-                f"batch and needs >= 3 samples; got batch {b}"
+                "texture-space interpolation loss pairs interpolants "
+                "WITHIN a data shard and needs >= 3 samples per shard; "
+                f"got per-shard batch {b} — raise the global batch or "
+                "use fewer mesh devices"
             )
         if do_fuse:
             flm_interp = L.interpolate_flame_batch(flame, draws.get("interp_t"), rng)
@@ -369,6 +389,8 @@ def make_train_step(
         d_fake = d_input(d_fake, "noise_fake")
         do_r1 = (state.step + 1) % cfg.r1_interval == 0
         d_loss, r1, d_grads = d_loss_and_grads(disc, real_d, cond, d_fake, cfg, do_r1, d_fake_cond)
+        if group is not None:
+            mean_all_reduce(d_grads, group)
         _adam_step(state.d_opt, disc.parameters(), d_grads)
 
         # G update(s), scored by the updated D.  Unfused, each update draws
@@ -402,7 +424,7 @@ def make_train_step(
                 z = draw("pl_z", (b, 512), it)
                 ppl, pl_mean = L.path_length_penalty(
                     lambda zz: gen(cond, z=zz, step=step_idx), z, state.pl_mean,
-                    noise=draw("pl_noise", real.shape, it),
+                    noise=draw("pl_noise", real.shape, it), group=group,
                 )
                 rest = rest + 2.0 * ppl
             elif reg == "direct_grad_reg":
@@ -424,11 +446,13 @@ def make_train_step(
                 )
                 del live
                 state.pl_mean = pl_mean.detach()
+                if group is not None:
+                    mean_all_reduce(g_grads, group)
                 _adam_step(state.g_opt, gen.parameters(), g_grads)
                 ema_update(state.g_ema.parameters(), gen.parameters(), cfg.ema_decay)
 
         state.step += 1
-        state.used_samples += b
+        state.used_samples += b * world
         metrics = {
             "d_loss": d_loss,
             "g_loss": g_adv,
@@ -438,6 +462,10 @@ def make_train_step(
         }
         if interp_on:
             metrics["interp"] = interp
+        if group is not None:
+            values = [v.detach().clone() for v in metrics.values()]
+            mean_all_reduce(values, group)
+            metrics = dict(zip(metrics, values))
         return state, metrics
 
     return train_step

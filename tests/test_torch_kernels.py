@@ -405,3 +405,18 @@ def test_sampler_function_backward_matches_plain(cuda_device):
     assert torch.equal(out, want_out.detach())
     assert (d_img - want_img).abs().max().item() <= 1e-5 * want_img.abs().max().item() + 1e-7
     assert (d_grid - want_grid).abs().max().item() <= 1e-5 * want_grid.abs().max().item()
+
+
+def test_two_rank_step_on_one_card_stays_bit_equal(cuda_device, tmp_path):
+    """Two ranks (gloo: NCCL refuses two ranks on one card) take two tiny
+    run_id-8 steps on the card, each on its half of the batch (R1 on the
+    second): the replicas' G, D and EMA stay bit-equal after each step,
+    and kernels 1-5 launch on both ranks."""
+    from torch_parallel_ranks import cuda_steps, run_ranks
+
+    run_ranks(cuda_steps, 2, str(tmp_path / "rank{}.pt"))
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2))
+    assert r0["digests"] == r1["digests"] and r0["digests"][0] != r0["digests"][1]
+    assert r0["r1"] > 0 and r0["used"] == r1["used"] == 16
+    for r in (r0, r1):
+        assert all(n > 0 for n in r["launches"]), r["launches"]

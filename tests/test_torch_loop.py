@@ -261,9 +261,11 @@ def test_metrics_logger_resume_with_new_column(tmp_path):
 def test_loop_guards(tmp_path):
     res = synthetic_flame_resources(seed=1, n_vertices=503)
     images, flame = _arrays()
-    with pytest.raises(NotImplementedError):
+    # The warm start reads the converted file (tests/test_torch_tools.py
+    # holds it to JAX's): a missing one is an error, never a fresh start.
+    with pytest.raises(FileNotFoundError):
         tloop.train(_resume_cfg(), tp.FlameDataset(images, flame), res, str(tmp_path), total_iters=1,
-                    converted_ckpt="reference.pkl", device="cpu")
+                    converted_ckpt=str(tmp_path / "reference.pkl"), device="cpu")
     cfg0 = get_config(0, **tiny_overrides(batch_size=4))
     with pytest.raises(ValueError, match="flip/crop"):
         tloop.train(cfg0, tp.FlameDataset(images, flame, random_crop=True), res, str(tmp_path),

@@ -201,9 +201,11 @@ def branch_batch(cfg, aug) -> dict:
     return batch
 
 
-def jax_branch_draws(rng, jcfg, fused: bool) -> dict:
-    """Every random draw of one JAX step called with ``rng``
-    (``gif_tpu/train/step.py``): the key split at :216; the derangement's
+def jax_branch_draws(rng, jcfg, fused: bool, b: int = BRANCH_B, shard=None) -> dict:
+    """Every random draw of one JAX step on ``b`` rows called with ``rng``
+    (``gif_tpu/train/step.py``; with ``shard``, that shard's draws in the
+    sharded step, whose key is first folded with the axis index at
+    :214-215): the key split at :216; the derangement's
     shift (:333, ``losses.py:98``) and the instance noise on D's reals and
     fakes (:359-360); per G iteration (:535, :615-617 or :624) the noise on
     G's scored fakes (:417), the path-length z and projection noise
@@ -213,7 +215,9 @@ def jax_branch_draws(rng, jcfg, fused: bool) -> dict:
 
     from gif_tpu_torch.train.step import g_schedule
 
-    b, s = BRANCH_B, jcfg.max_size
+    s = jcfg.max_size
+    if shard is not None:
+        rng = jax.random.fold_in(rng, shard)
     rng_d, rng_g, _, _ = jax.random.split(rng, 4)
     g_interval, g_iters = g_schedule(jcfg)
     n_fake = 2 * b if jcfg.shfld_cond_as_neg_smpl else b
