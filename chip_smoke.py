@@ -117,6 +117,25 @@ Phases (each raises on failure; nothing is caught):
     bit for bit against the ranks' own gradients); prints the
     all-reduce share of a step and the ranks' combined images/s (a
     correctness configuration: the ranks time-slice one card).
+20. the generation path: every figure script of ``gif_tpu_torch.scripts``
+    once at ``--tiny`` (FLAME-sized mesh, 32 px) on the card and on the
+    CPU, held together end to end (conditions, the card's G on the CPU's
+    conditions, landmarks, stolen textures); then at run_id 0's full width
+    (256 px, 512 channels, 69158 identities, bf16 convs) from a trees
+    pickle written from a seeded port train state, every counter 0 just
+    before: ``generate_random_samples`` (64 samples, batch 16; its first
+    batch held launch by launch to the plain versions),
+    ``role_of_different_parameters`` (2 pairs), ``generate_gif`` (4
+    keyframes x 8 steps), ``animate_teaser`` (8 steps a sweep), ``teaser``
+    (1 identity with ``--steal_textures``, every launch held) and
+    ``landmark_overlay`` (8 samples, ``--reinferred`` the same fits, so the
+    error reads 0); checks the files, finite images, render overflow 0,
+    kernels 1-4 launched and 5-6 not; prints generate_random_samples'
+    images/s; then the library calls: a style-mixed G forward against the
+    plain kernels, ``get_visibility`` / ``get_visibility_z`` (batch 8, 256
+    px) equal to the plain rasterizer's, ``FlameRenderer`` with
+    ``constant_albedo`` (one raster launch, no sampler launch, maps equal
+    to the plain render).
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -139,7 +158,8 @@ requests'; ``run_id0.launches``: the counted run_id-0 steps';
 ``run_id8_reg``, ``run_id0_direct`` and ``render_grad``: phases 13-15's
 counted launches; ``loop``: phases 16-17's, the ``train()`` run's and its
 split; ``data_parallel``: phase 18's steps' and each phase-19 rank's
-per run; kernel 6's ``albedo``: its numbers at the albedo
+per run; ``generation``: phase 20's six full-width scripts'; kernel 6's
+``albedo``: its numbers at the albedo
 lookup's gradient), the card's name and power limit as nvidia-smi reports
 them, and the result line.
 """
@@ -2333,6 +2353,329 @@ def check_branches_against_cpu_plain():
         assert g_err <= bar and m_err <= bar and pl_err <= bar, (name, g_err, m_err, pl_err)
 
 
+# --- Phase 20: the generation path (the paper's figure scripts) -------------
+GEN_SCRIPTS = ("generate_random_samples", "role_of_different_parameters", "generate_gif", "animate_teaser",
+               "teaser", "landmark_overlay")
+GEN_FULL_ARGS = {  # full width: the scripts' shares of the phase
+    "generate_random_samples": ["--n", "64", "--batch", "16"],
+    "role_of_different_parameters": ["--n_pairs", "2"],
+    "generate_gif": ["--n_keyframes", "4", "--steps", "8"],
+    "animate_teaser": ["--steps", "8"],
+    "teaser": ["--n_identities", "1", "--steal_textures"],
+    "landmark_overlay": ["--n", "8"],
+}
+GEN_TINY_ARGS = {  # one batch each (the teaser's 15 rows: two of 8)
+    "generate_random_samples": ["--n", "4", "--batch", "4"],
+    "role_of_different_parameters": ["--n_pairs", "1"],
+    "generate_gif": ["--n_keyframes", "2", "--steps", "3"],
+    "animate_teaser": ["--steps", "2"],
+    "teaser": ["--n_identities", "1", "--steal_textures"],
+    "landmark_overlay": ["--n", "3"],
+}
+GEN_KERNELS = ["raster", "sampler", "flr", "blur"]  # the generation path: G and the render forward only
+
+
+class ScriptProbe:
+    """While active, every ``FlameSampler`` the scripts build gets the
+    raster capacity ``capacity`` (None: the script's own), and the probe
+    keeps each sampler, each ``sample`` call's (sampler, indices, images,
+    conditions), the start time of each batch and the end of each call,
+    and the landmark projections of ``landmark_overlay``.  With
+    ``record_first`` the first batch of the first sampler runs under a
+    :class:`LaunchRecorder` (every launch held to its plain version)."""
+
+    def __init__(self, capacity=None, record_first: bool = False):
+        self.capacity, self.record_first = capacity, record_first
+        self.samplers, self.samples, self.batch_starts, self.sample_ends = [], [], [], []
+        self.landmarks, self.recorders = [], []
+
+    def __enter__(self):
+        import torch
+
+        from gif_tpu_torch.eval import sampling
+        from gif_tpu_torch.scripts import landmark_overlay
+
+        cls = sampling.FlameSampler
+        self.saved = [(cls, n, cls.__dict__[n]) for n in ("__init__", "sample", "_run")]
+        self.saved.append((landmark_overlay, "project_landmarks", landmark_overlay.project_landmarks))
+        init, sample, run = (f for _, _, f in self.saved[:3])
+        project = landmark_overlay.project_landmarks
+        probe = self
+
+        def init_(sampler, *a, **kw):
+            init(sampler, *a, **kw)
+            if probe.capacity is not None:
+                sampler.max_tris_per_tile = probe.capacity
+            probe.samplers.append(sampler)
+
+        def sample_(sampler, flame, indices):
+            images, conds = sample(sampler, flame, indices)
+            probe.sample_ends.append(time.perf_counter())
+            probe.samples.append((sampler, np.array(indices), images, conds))
+            return images, conds
+
+        def run_(sampler, flame, indices):
+            probe.batch_starts.append(time.perf_counter())
+            if probe.record_first and not probe.recorders:
+                with LaunchRecorder() as rec:
+                    out = run(sampler, flame, indices)
+                    torch.cuda.synchronize()
+                probe.recorders.append(rec)
+                return out
+            return run(sampler, flame, indices)
+
+        def project_(*a, **kw):
+            pts = project(*a, **kw)
+            probe.landmarks.append(pts)
+            return pts
+
+        cls.__init__, cls.sample, cls._run = init_, sample_, run_
+        landmark_overlay.project_landmarks = project_
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    @property
+    def render_overflows(self) -> int:
+        return sum(s.render_overflows for s in self.samplers)
+
+
+def write_trees(cfg, path: str, device=None) -> None:
+    """The trees pickle (``g_params``, ``g_ema_params``, ``d_params``,
+    ``buffers``) of a fresh seeded port train state of ``cfg``: what
+    ``--converted_ckpt`` loads."""
+    import pickle
+
+    from gif_tpu_torch.tools.convert_params import train_state_trees
+    from gif_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, seed=0, device=device)
+    with open(path, "wb") as f:
+        pickle.dump(train_state_trees(state), f)
+
+
+def run_script(name: str, args: list) -> None:
+    import importlib
+
+    importlib.import_module(f"gif_tpu_torch.scripts.{name}").main(args)
+
+
+def check_generation_against_cpu_plain(tmp: str) -> None:
+    """Phase 20, first part: every figure script once at ``--tiny`` (one
+    batch each, the FLAME-sized synthetic mesh, run_id 0's tiny G at f32)
+    on the card and on the CPU, from one trees pickle: the conditions of
+    every ``FlameSampler.sample`` call within one 8-bit step on < 0.5% of
+    values, the card's G fed the CPU's conditions within 1e-3 of the CPU
+    images, the landmark projections within 1e-3 px, the stolen textures
+    within 1e-2 on all but 0.1% of texels (a visibility flip moves a texel
+    by the whole value)."""
+    import torch
+
+    from gif_tpu_torch.train.config import TINY_OVERRIDES, get_config
+
+    trees = os.path.join(tmp, "tiny_trees.pkl")
+    write_trees(get_config(0, **TINY_OVERRIDES, embedding_vocab_size=16), trees, device="cpu")
+    step = 2.0 / 255.0
+    for name in GEN_SCRIPTS:
+        runs = {}
+        for d in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"tiny_{name}_{d}")
+            extra = ["--out", out + ".gif"] if name == "generate_gif" else ["--out_dir", out]
+            with ScriptProbe() as probe:
+                run_script(name, ["--tiny", "--flame_resources", "synthetic", "--vocab", "16", "--converted_ckpt",
+                                  trees, "--device", d, *GEN_TINY_ARGS[name], *extra])
+            runs[d] = probe
+        flips, img_err = 0.0, 0.0
+        assert len(runs["cuda"].samples) == len(runs["cpu"].samples) > 0, name
+        for (sampler, idx, g_img, g_cond), (_, _, c_img, c_cond) in zip(runs["cuda"].samples, runs["cpu"].samples):
+            diff = np.abs(g_cond - c_cond)
+            assert diff.max() <= step * 1.001, (name, diff.max())
+            flips = max(flips, float((diff > step * 0.5).mean()))
+            with torch.inference_mode():
+                g_on_c = sampler.generator(torch.from_numpy(c_cond).cuda(), input_indices=torch.from_numpy(idx).cuda(),
+                                           step=sampler.cfg.max_step).cpu().numpy()
+            img_err = max(img_err, float(np.abs(g_on_c - c_img).max()))
+            assert np.isfinite(g_img).all()
+        lmk_err = max([float(np.abs(a - b).max()) for a, b in zip(runs["cuda"].landmarks, runs["cpu"].landmarks)]
+                      or [0.0])
+        tex = ""
+        if name == "teaser":
+            from PIL import Image
+
+            t = [np.stack([np.asarray(Image.open(os.path.join(tmp, f"tiny_teaser_{d}", "identity_0",
+                                                             f"texture_{i}.png"))) for i in range(15)])
+                 for d in ("cuda", "cpu")]
+            off = float((np.abs(t[0].astype(int) - t[1].astype(int)) > 2.55).any(-1).mean())
+            tex = f", stolen textures: texels off by > 1e-2 {off:.5f} (tol 0.001)"
+            assert off <= 1e-3, off
+        log(f"cuda vs cpu plain ({name} --tiny, FLAME-sized mesh, 32 px): {len(runs['cuda'].samples)} sample "
+            f"call(s), cond one-step flips {flips:.4f} (tol 0.005), card G on the CPU conditions max_abs_err "
+            f"{img_err:.3g} (tol 1e-3), landmarks max |diff| {lmk_err:.3g} px (tol 1e-3){tex}")
+        assert flips < 0.005 and img_err < 1e-3 and lmk_err < 1e-3, name
+
+
+def generation_path(counters: dict, smi: str):
+    """Phase 20: the paper's figure scripts on the card at run_id 0's
+    full width (256 px, 512 channels, 69158 identities, bf16 convs), the
+    FLAME-sized synthetic mesh, from a trees pickle written from a seeded
+    port train state; then the generation library calls.  Returns
+    (launches by counter name, the recorded launches' largest errors by
+    kernel)."""
+    import tempfile
+
+    import torch
+
+    from gif_tpu_torch.eval.sampling import FlameSampler, load_generator_params, random_flame_params
+    from gif_tpu_torch.flame.camera import position_to_given_location
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.models.generator import StyledGenerator
+    from gif_tpu_torch import constants as cnst
+    from gif_tpu_torch.flame.camera import batch_orth_proj
+    from gif_tpu_torch.flame.decoder import flame_decode
+    from gif_tpu_torch.render import FlameRenderer, get_visibility, get_visibility_z
+    from gif_tpu_torch.train.config import get_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gif_gen_") as tmp:
+        check_generation_against_cpu_plain(tmp)
+
+        t0 = time.perf_counter()
+        cfg = get_config(0)
+        trees = os.path.join(tmp, "trees.pkl")
+        write_trees(cfg, trees)
+        res = synthetic_flame_resources()
+        log(f"phase generation setup: run_id 0, {cfg.max_size} px, max_channels {cfg.max_channels}, vocab "
+            f"{cfg.embedding_vocab_size}, {cfg.compute_dtype}, mesh {res.n_vertices} vertices / {res.n_faces} "
+            f"faces, trees pickle {os.path.getsize(trees)} bytes from a seeded port train state: "
+            f"{time.perf_counter() - t0:.2f} s")
+        # The landmark overlay's --reinferred fits: its own eye-centred draws,
+        # so the re-inference error must read 0.
+        fl = random_flame_params(np.random.default_rng(0), 8)
+        fits = position_to_given_location(res, torch.as_tensor(fl, device="cuda")).cpu().numpy()
+        np.save(os.path.join(tmp, "fits.npy"), fits)
+        common = ["--run_id", "0", "--flame_resources", "synthetic", "--converted_ckpt", trees, "--device", "cuda"]
+        extra = {"generate_gif": ["--out", os.path.join(tmp, "full_generate_gif.gif")],
+                 "landmark_overlay": ["--reinferred", os.path.join(tmp, "fits.npy")]}
+        errs, secs, probes = {}, {}, {}
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        for name in GEN_SCRIPTS:
+            out = ["--out_dir", os.path.join(tmp, f"full_{name}")] if name != "generate_gif" else []
+            t0 = time.perf_counter()
+            # The synthetic mesh's eye-centred heads overflow the mesh-derived
+            # capacity (phase 2), so the samplers bin up to the face count.
+            with ScriptProbe(capacity=res.n_faces, record_first=name == "generate_random_samples") as probe:
+                if name == "teaser":
+                    with LaunchRecorder() as rec:
+                        run_script(name, [*common, *GEN_FULL_ARGS[name], *out, *extra.get(name, [])])
+                        torch.cuda.synchronize()
+                    probe.recorders.append(rec)
+                else:
+                    run_script(name, [*common, *GEN_FULL_ARGS[name], *out, *extra.get(name, [])])
+            secs[name] = time.perf_counter() - t0
+            probes[name] = probe
+            for rec in probe.recorders:
+                for kind, st in rec.stats.items():
+                    if st:
+                        errs[kind] = max(errs.get(kind, 0.0), st["max_abs_err"])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+
+        # Checks: files, finite images, no overflow, the recorded launches.
+        for path in ("full_generate_random_samples/images/img_63.png", "full_generate_random_samples/params.npy",
+                     "full_role_of_different_parameters/pair_1/norm_5.png", "full_generate_gif.gif",
+                     "full_animate_teaser/teaser_animation.gif", "full_teaser/identity_0/rows.txt",
+                     "full_teaser/identity_0/texture_12.png", "full_landmark_overlay/lmk_face_7.png"):
+            assert os.path.getsize(os.path.join(tmp, path)) > 0, path
+        n_images = {name: sum(len(s[2]) for s in p.samples) for name, p in probes.items()}
+        for name, p in probes.items():
+            for _, _, images, conds in p.samples:
+                assert images.shape[1:] == (cfg.max_size, cfg.max_size, 3) and np.isfinite(images).all(), name
+                assert np.isfinite(conds).all() and images.max() > images.min(), name
+            assert p.render_overflows == 0, (name, p.render_overflows)
+        first = probes["generate_random_samples"].recorders[0]
+        steal = probes["teaser"].recorders[0]
+        assert len(first.rounds) == 1 and all(first.rounds[0][k] for k in GEN_KERNELS), \
+            {k: len(v) for k, v in first.rounds[0].items()}
+        # The steal's launch: kernel 2 on the (B, texels, 1, 2) point grid.
+        assert len(steal.rounds) == 2 and any(sig[1][1:] == (len(res.texture_x_coords), 1, 2)
+                                              for sig in steal.rounds[-1]["sampler"]), steal.rounds[-1]["sampler"]
+        lmk = probes["landmark_overlay"].landmarks
+        assert len(lmk) == 2 and np.array_equal(lmk[0], lmk[1]), "re-inference error is not 0"
+        assert all(launches[KERNELS[k]["name"]] > 0 for k in GEN_KERNELS), launches
+        assert all(launches[KERNELS[k]["name"]] == 0 for k in ("flr_bwd", "blur_vjp", "scatter")), launches
+
+        # images/s of generate_random_samples over its batches after the
+        # recorded first one (host clock: render + G + readback).
+        g = probes["generate_random_samples"]
+        t_batches = g.sample_ends[-1] - g.batch_starts[1]
+        ips = 16 * (len(g.batch_starts) - 1) / t_batches
+        log(f"phase generation: six scripts at full width in {sum(secs.values()):.2f} s host clock "
+            f"({', '.join(f'{k} {v:.2f} s / {n_images[k]} images' for k, v in secs.items())}); launches {launches}; "
+            f"render overflow 0; recorded launches (generate_random_samples' first batch, the teaser with its "
+            f"steal) max_abs_err {errs}; landmark re-inference error 0")
+        log(f"generation images/s (generate_random_samples, batch 16, batches 2-{len(g.batch_starts)}, host clock: "
+            f"render + G + readback): {ips:.2f}; on {smi}")
+
+        # Library calls on the card.
+        t0 = time.perf_counter()
+        gen = StyledGenerator.from_config(cfg)
+        gen.load_state_dict(load_generator_params(cfg, converted_ckpt=trees))
+        gen = gen.cuda().eval()
+        rng = np.random.default_rng(20)
+        cond = torch.as_tensor(rng.uniform(-1, 1, (4, 256, 256, cfg.cond_channels)).astype(np.float32), device="cuda")
+        zs = [torch.as_tensor(rng.standard_normal((4, 512)).astype(np.float32), device="cuda") for _ in range(2)]
+        with torch.inference_mode():
+            mixed = gen(cond, z=zs, step=cfg.max_step, inject_index=[cfg.max_step // 2])
+            single = gen(cond, z=zs[0], step=cfg.max_step)
+            with plain_kernels():
+                want = gen(cond, z=zs, step=cfg.max_step, inject_index=[cfg.max_step // 2])
+        mix_err = (mixed - want).abs().max().item()
+        mix_bar = want.abs().max().item() * 2.0**-7
+        assert mix_err <= mix_bar and (mixed - single).abs().max().item() > 1e-3, (mix_err, mix_bar)
+
+        flame = torch.as_tensor(random_flame_params(np.random.default_rng(21), 8), device="cuda")
+        trans = batch_orth_proj(flame_decode(res, flame[:, :100], flame[:, 100:150], flame[:, 150:156]),
+                                flame[:, 156:159])
+        ndc = torch.cat([trans[:, :, :1], -trans[:, :, 1:]], dim=2)
+        before = counters["raster"].launches
+        vis = {fn.__name__: fn(ndc, res.faces, 256, 256) for fn in (get_visibility, get_visibility_z)}
+        torch.cuda.synchronize()
+        assert counters["raster"].launches == before + 2
+        with plain_render():
+            vis_plain = {fn.__name__: fn(ndc, res.faces, 256, 256) for fn in (get_visibility, get_visibility_z)}
+        for k in vis:
+            assert torch.equal(vis[k], vis_plain[k]), k
+            assert bool((vis[k] > 0).any()) and bool((vis[k] == 0).any()), k
+
+        before = counters["raster"].launches, counters["sampler"].launches
+        (tex0, tex1), (lit0, lit1) = cnst.DECA_IDX["tex"], cnst.DECA_IDX["lit"]
+        fr = FlameRenderer(res, image_size=256)
+        params = (flame[:, :100], flame[:, 100:150], flame[:, 150:156], flame[:, lit0:lit1].reshape(8, 9, 3),
+                  flame[:, tex0:tex1])
+        normal, textured = fr.get_rendered_mesh(params, flame[:, 156:159], constant_albedo=0.6)
+        torch.cuda.synchronize()
+        assert (counters["raster"].launches, counters["sampler"].launches) == (before[0] + 1, before[1])
+        with plain_render():
+            want_n, want_t = fr.get_rendered_mesh(params, flame[:, 156:159], constant_albedo=0.6)
+        # The vertex normals are index_add_ sums whose atomics add in no
+        # fixed order: a floored value may move by one 8-bit step.
+        fr_flips = max(float(((a - b).abs() > 0).float().mean()) for a, b in ((normal, want_n), (textured, want_t)))
+        fr_err = max((a - b).abs().max().item() for a, b in ((normal, want_n), (textured, want_t)))
+        assert fr_err <= 1.001 / 255.0 and fr_flips < 1e-3 and bool((textured > 0).any()), (fr_err, fr_flips)
+        log(f"phase generation library calls ({time.perf_counter() - t0:.2f} s): style-mixed G (two z, inject_index "
+            f"[{cfg.max_step // 2}], batch 4, {cfg.compute_dtype}) vs the plain kernels max_abs_err {mix_err:.3g} (tol 1 bf16 step of the max: "
+            f"{mix_bar:.3g}); get_visibility / get_visibility_z (batch 8, 256 px, kernel 1) equal to the plain "
+            f"rasterizer's, visible share {[round(float(v.mean()), 4) for v in vis.values()]}; FlameRenderer "
+            f"constant_albedo 0.6 (batch 8): one raster launch, no sampler launch, maps against the plain render: "
+            f"max diff {fr_err:.3g} on {fr_flips:.2g} of values (tol one 8-bit step on < 0.001)")
+    log(f"phase generation: {time.perf_counter() - t_phase:.2f} s in all (the tiny CUDA-vs-CPU check included)")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -2522,6 +2865,9 @@ def main() -> int:
     # --- phase 19: two data-parallel ranks (gloo) on the one card ---
     dp_parts = train_two_ranks(res, smi)
 
+    # --- phase 20: the generation path (the figure scripts) ---
+    gen_launches, errs_gen = generation_path(counters, smi)
+
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
     # forward kernels carry their served-path numbers under "serve", every
@@ -2547,10 +2893,11 @@ def main() -> int:
         r["render_grad"] = {"launches": launches_rg[meta["name"]]}
         r["loop"] = loop_parts[kind]
         r["data_parallel"] = {"nccl_launches": nccl_parts[kind], **dp_parts[kind]}
+        r["generation"] = {"launches": gen_launches[meta["name"]]}
         if kind == "scatter":
             r["albedo"] = albedo
         r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),
-                               errs_dg.get(kind, 0.0), errs_loop.get(kind, 0.0),
+                               errs_dg.get(kind, 0.0), errs_loop.get(kind, 0.0), errs_gen.get(kind, 0.0),
                                albedo["max_abs_err"] if kind == "scatter" else 0.0)
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": records}))

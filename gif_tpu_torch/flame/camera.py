@@ -3,7 +3,9 @@
 Port of :mod:`gif_tpu.flame.camera`: ``batch_orth_proj`` shifts xy and then
 multiplies ALL THREE coordinates (z included) by the scale;
 ``position_to_given_location`` decodes the mesh and solves the eye-centring
-camera for the whole batch with one batched pseudo-inverse.
+camera for the whole batch with one batched pseudo-inverse.  The legacy
+perspective-camera parameter dicts (``camera_ringnet``,
+``camera_dynamic``, ``camera_ringnetpp``) are carried for API parity.
 """
 
 from __future__ import annotations
@@ -69,3 +71,42 @@ def position_to_given_location(res, flame_batch: torch.Tensor) -> torch.Tensor:
     out = flame_batch.clone()
     out[:, 156:159] = cam.to(flame_batch.dtype)
     return out
+
+
+# --- Legacy perspective-camera parameter dicts -------------------------------
+#
+# OpenCV-style camera parameter dicts of the reference's older overlay path;
+# the shipped GIF configs use only the orthographic (s, bx, by) camera above.
+# Keys: c (principal point), k (distortion), f (focal), t (translation),
+# r (rotation, Rodrigues).
+
+
+def camera_ringnet(cam) -> dict:
+    """RingNet camera vector (f, cx, cy) -> parameter dict."""
+    cam = np.asarray(cam)
+    return {"c": cam[1:3], "k": np.zeros(5), "f": cam[0] * np.ones(2), "t": np.zeros(3), "r": np.zeros(3)}
+
+
+def camera_dynamic(h_w, translation) -> dict:
+    """Resolution-scaled fixed-intrinsics camera."""
+    h, w = h_w
+    fscale = h / 256
+    return {
+        "c": np.array([w / 2, h / 2]),
+        "k": np.array([-0.19816071, 0.92822711, 0.0, 0.0, 0.0]),
+        "f": np.array([fscale * 4754.97941935, fscale * 4754.97941935]),
+        "t": np.asarray(translation),
+        "r": np.array([np.pi, 0.0, 0.0]),
+    }
+
+
+def camera_ringnetpp(h_w, trans, focal) -> dict:
+    """RingNet++ camera with an explicit focal length."""
+    h, w = h_w
+    return {
+        "c": np.array([w / 2, h / 2]),
+        "k": np.zeros(5),
+        "f": focal * np.ones(2),
+        "t": np.asarray(trans),
+        "r": np.array([0.0, np.pi, 0.0]),
+    }

@@ -1,9 +1,11 @@
 """FLAME decode: blendshapes + pose correctives + linear blend skinning.
 
-Port of :mod:`gif_tpu.flame.decoder` (``flame_decode`` and its helpers):
-``flame(shape(B,100), exp(B,50), pose(B,6)) -> verts(B,V,3)`` where pose is
-[global(3) | jaw(3)] and neck/eyeball rotations default to zero.  Every
-stage is one batched einsum / matmul, as in the reference.
+Port of :mod:`gif_tpu.flame.decoder`: ``flame_decode`` maps
+``(shape(B,100), exp(B,50), pose(B,6))`` to verts (B,V,3), where pose is
+[global(3) | jaw(3)] and neck/eyeball rotations default to zero;
+``flame_decode_full`` adds the landmarks, ``(verts, lmk2d, lmk3d)``, with
+the yaw-dependent jawline contour in ``lmk2d``.  Every stage is one
+batched einsum / matmul / gather, as in the reference.
 """
 
 from __future__ import annotations
@@ -117,3 +119,60 @@ def flame_decode(
     # Per-vertex skinning transform: (B, V, 4, 4) = lbs_weights @ A
     T = torch.einsum("vj,bjrc->bvrc", lbs_weights, A)
     return torch.einsum("bvrc,bvc->bvr", T[..., :3, :3], v_posed) + T[..., :3, 3]
+
+
+def flame_decode_landmarks(res, verts: torch.Tensor) -> torch.Tensor:
+    """3-D landmarks (B, L, 3) from decoded vertices via the static (face,
+    barycentric) embedding."""
+    dev = verts.device
+    tri = res.tensor("faces", dev, torch.long)[res.tensor("lmk_faces", dev, torch.long)]  # (L, 3)
+    corner = verts[:, tri]  # (B, L, 3, 3)
+    return torch.einsum("blcd,lc->bld", corner, res.tensor("lmk_bary", dev, verts.dtype))
+
+
+def _dynamic_contour_bucket(pose_params: torch.Tensor, neck_pose: torch.Tensor) -> torch.Tensor:
+    """Yaw bucket (B,) in [0, 78] of the jawline contour: the head yaw read
+    off the neck chain's world rotation R_global @ R_neck, in 1-degree
+    steps clamped to +/-39, laid out [0..39] for yaw >= 0 and [40..78]
+    for yaw in [-1, -39]."""
+    rel = rodrigues(pose_params[:, :3]) @ rodrigues(neck_pose)
+    # Euler yaw: atan2(-R[2,0], sqrt(R[0,0]^2 + R[1,0]^2)).
+    yaw = torch.atan2(-rel[:, 2, 0], torch.sqrt(rel[:, 0, 0] ** 2 + rel[:, 1, 0] ** 2))
+    deg = torch.round(torch.clamp(-yaw * (180.0 / np.pi), max=39.0)).to(torch.int64)
+    neg_vals = torch.where(deg < -39, 78, 39 - deg)
+    return torch.where(deg < 0, neg_vals, deg)
+
+
+def flame_decode_full(
+    res,
+    shape_params: torch.Tensor,
+    expression_params: torch.Tensor,
+    pose_params: torch.Tensor,
+    neck_pose: torch.Tensor | None = None,
+    eye_pose: torch.Tensor | None = None,
+):
+    """The full FLAME call: ``(verts, lmk2d, lmk3d)``.
+
+    ``lmk3d`` is the static 68-point embedding; ``lmk2d`` replaces its 17
+    jawline points with the yaw-dependent dynamic contour (the set used
+    for 2-D image fitting and the landmark re-inference metric).  Both are
+    3-D model-space points; callers project them with the camera.
+    Resources without a dynamic contour return ``lmk3d`` twice."""
+    b = shape_params.shape[0]
+    if neck_pose is None:
+        neck_pose = torch.zeros((b, 3), dtype=shape_params.dtype, device=shape_params.device)
+    verts = flame_decode(res, shape_params, expression_params, pose_params, neck_pose, eye_pose)
+    lmk3d = flame_decode_landmarks(res, verts)
+    if res.dynamic_lmk_faces is None:
+        return verts, lmk3d, lmk3d
+
+    dev = verts.device
+    bucket = _dynamic_contour_bucket(pose_params, neck_pose)
+    dyn_faces = res.tensor("dynamic_lmk_faces", dev, torch.long)[bucket]  # (B, 17)
+    dyn_bary = res.tensor("dynamic_lmk_bary", dev, verts.dtype)[bucket]  # (B, 17, 3)
+    tri = res.tensor("faces", dev, torch.long)[dyn_faces]  # (B, 17, 3) vertex ids
+    corner = torch.gather(
+        verts, 1, tri.reshape(b, -1, 1).expand(-1, -1, 3)
+    ).reshape(b, -1, 3, 3)  # (B, 17, 3, 3)
+    contour = torch.einsum("blcd,blc->bld", corner, dyn_bary)
+    return verts, torch.cat([contour, lmk3d[:, 17:]], dim=1), lmk3d

@@ -1,6 +1,7 @@
 """The GIF conditional StyleGAN2 generator (port of
-:mod:`gif_tpu.models.generator`), single style with the ``mean_w``
-truncation path; style mixing is not ported yet.
+:mod:`gif_tpu.models.generator`), with the ``mean_w`` truncation path and
+style mixing (a crossover walk over ``inject_index``, or a
+``mixing_range`` of blocks that take the second style).
 
 - ``SynthesisNetwork``: a learned constant at ``core_tensor_res`` and one
   block per scale (the first a single StyledConv, the rest an upsampling
@@ -13,6 +14,7 @@ truncation path; style mixing is not ported yet.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -86,16 +88,53 @@ class SynthesisNetwork(nn.Module):
             ))
             in_ch = chans[i]
 
-    def forward(self, latent, conds, step: int):
-        """latent: (B, 512); conds: per-scale NCHW condition maps for
-        i = 0..step.  Returns (B, 3, 4*2**step, 4*2**step) f32."""
+    def forward(
+        self,
+        latent,
+        conds,
+        step: int,
+        inject_index: Sequence[int] | None = None,
+        mixing_range: tuple = (-1, -1),
+    ):
+        """latent: (B, 512) or a sequence of them (style mixing); conds:
+        per-scale NCHW condition maps for i = 0..step.  Returns (B, 3,
+        4*2**step, 4*2**step) f32.
+
+        With several styles and ``mixing_range == (-1, -1)`` a crossover
+        walk over ``inject_index`` moves to the next style once the block
+        index passes each injection point; otherwise blocks inside
+        ``[mixing_range[0], mixing_range[1]]`` take style 1 and all others
+        style 0."""
         if step > self.max_step:
             raise ValueError(f"step {step} > the {self.max_step} this network was built for")
-        x = self.const_input.expand(latent.shape[0], -1, -1, -1)
+        styles = list(latent) if isinstance(latent, (list, tuple)) else [latent]
+        if len(styles) < 2:
+            inject_index = [step + 2]  # never crosses
+        elif mixing_range == (-1, -1):
+            if inject_index is None:
+                raise ValueError(
+                    "multiple styles need inject_index (static crossover "
+                    "block ids) or an explicit mixing_range"
+                )
+            inject_index = list(inject_index)
+            if len(inject_index) != len(styles) - 1:
+                raise ValueError(
+                    f"{len(styles)} styles need {len(styles) - 1} injection "
+                    f"points, got {len(inject_index)}"
+                )
+        x = self.const_input.expand(styles[0].shape[0], -1, -1, -1)
         skip = None
+        crossover = 0
         for i in range(self.start_step, step + 1):
-            x = getattr(self, f"block{i}")(x, latent, conds[i])
-            skip = getattr(self, f"to_rgb{i}")(x, latent, skip)
+            if mixing_range == (-1, -1):
+                if crossover < len(inject_index) and i > inject_index[crossover]:
+                    crossover = min(crossover + 1, len(styles) - 1)
+                style_i = styles[crossover]
+            else:
+                in_range = mixing_range[0] <= i <= mixing_range[1]
+                style_i = styles[1 if in_range and len(styles) > 1 else 0]
+            x = getattr(self, f"block{i}")(x, style_i, conds[i])
+            skip = getattr(self, f"to_rgb{i}")(x, style_i, skip)
         return skip
 
 
@@ -160,6 +199,8 @@ class StyledGenerator(nn.Module):
         z: torch.Tensor | None = None,
         step: int = 6,
         mean_w: torch.Tensor | None = None,
+        inject_index: Sequence[int] | None = None,
+        mixing_range: tuple = (-1, -1),
     ) -> torch.Tensor:
         """Generate images.
 
@@ -167,16 +208,22 @@ class StyledGenerator(nn.Module):
           cond: (B, H, W, C) condition maps in [-1, 1].
           input_indices: (B,) identity indices into the frozen embedding;
             mutually exclusive with ``z``.
-          z: (B, 512) latent fed straight to the mapping net.
+          z: (B, 512) latent fed straight to the mapping net, or a
+            sequence of them for style mixing.
           step: images come out at 4 * 2**step.
           mean_w: (512,) mean latent, required when w_truncation_factor
             deviates from 1.
+          inject_index: crossover block ids for style mixing, one per
+            extra style.
+          mixing_range: (lo, hi); blocks in [lo, hi] take style 1, the
+            rest style 0.
 
         Returns:
           (B, 4*2**step, 4*2**step, 3) float32 images.
         """
         if z is not None:
-            w = self.mapping(z)
+            zs = list(z) if isinstance(z, (list, tuple)) else [z]
+            w = [self.mapping(zz) for zz in zs]
         else:
             if input_indices is None:
                 input_indices = torch.zeros(cond.shape[0], dtype=torch.long, device=cond.device)
@@ -188,9 +235,13 @@ class StyledGenerator(nn.Module):
                         "compute it with StyledGenerator.mean_latent()."
                     )
                 w = w + (mean_w - w) * (1.0 - self.w_truncation_factor)
+            w = [w]
         cond_nchw = cond.permute(0, 3, 1, 2).float()
         conds = [resize_bilinear_nchw(cond_nchw, 4 * 2**i, 4 * 2**i) for i in range(step + 1)]
-        return self.synthesis(w, conds, step).permute(0, 2, 3, 1)
+        out = self.synthesis(
+            w if len(w) > 1 else w[0], conds, step, inject_index=inject_index, mixing_range=mixing_range
+        )
+        return out.permute(0, 2, 3, 1)
 
     def mean_latent(self) -> torch.Tensor:
         """Mean w over the whole identity-embedding table."""

@@ -18,6 +18,10 @@ The per-pixel work has two implementations with one arithmetic order:
 :func:`rasterize_plain` here (PyTorch, every op rounded once) and the CUDA
 kernel in :mod:`gif_tpu_torch.render.raster_cuda`, which uses explicitly
 rounded intrinsics and so agrees with it bit for bit.
+
+Per-vertex visibility (:func:`get_visibility`, :func:`get_visibility_z`)
+rasterizes through the same dispatch: kernel 1 on the card, the plain
+version on the CPU.
 """
 
 from __future__ import annotations
@@ -251,3 +255,59 @@ def rasterize_plain(
     if face_attrs is not None:
         attr_img = interpolate_face_attributes(tri, bary, face_attrs.float())
     return rast, attr_img
+
+
+def _visibility_raster(verts_ndc: torch.Tensor, faces, h: int, w: int):
+    """(pixel-space verts, faces (F, 3) long, RasterOutput) of NDC
+    vertices, at the mesh-derived capacity: dropped candidates would mark
+    their vertices invisible with no signal."""
+    from gif_tpu_torch.flame.mesh import _faces_tensor
+    from gif_tpu_torch.render import raster_cuda
+
+    pix = to_pixel_space(verts_ndc, h, w)
+    faces_t = _faces_tensor(faces, verts_ndc.device)
+    cap = auto_max_tris_per_tile(faces_t.shape[0], (h // 32) * (w // 32))
+    rast = raster_cuda.rasterize(pix[:, faces_t], h, w, max_tris_per_tile=cap)
+    return pix, faces_t, rast
+
+
+def get_visibility(verts_ndc: torch.Tensor, faces, h: int, w: int) -> torch.Tensor:
+    """Per-vertex visibility (B, V) float: 1 where a face containing the
+    vertex wins at least one pixel.  Two scatter-max reductions on the
+    device (pixels -> faces -> vertices), no host loop."""
+    _, faces_t, rast = _visibility_raster(verts_ndc, faces, h, w)
+    b, v, f = verts_ndc.shape[0], verts_ndc.shape[1], faces_t.shape[0]
+    flat = rast.tri_id.reshape(b, -1).long()
+    face_hit = torch.zeros((b, f), device=flat.device).scatter_reduce(
+        1, flat.clamp(min=0), (flat >= 0).float(), "amax"
+    )
+    corners = faces_t.t().reshape(1, -1).expand(b, -1)  # corner 0 of every face, then 1, then 2
+    return torch.zeros((b, v), device=flat.device).scatter_reduce(1, corners, face_hit.repeat(1, 3), "amax")
+
+
+def get_visibility_z(verts_ndc: torch.Tensor, faces, h: int, w: int) -> torch.Tensor:
+    """Per-vertex visibility (B, V) float by a bilinear depth-buffer test:
+    1 where the vertex's depth is within 2% of the (batch-wide) z range of
+    the depth buffer sampled at its pixel position — more permissive than
+    :func:`get_visibility` near silhouettes."""
+    pix, _, rast = _visibility_raster(verts_ndc, faces, h, w)
+    x, y, z = pix[..., 0], pix[..., 1], pix[..., 2]
+    zrange = z.max() - z.min()
+    x0 = torch.floor(x).long().clamp(0, w - 1)
+    x1 = torch.ceil(x).long().clamp(0, w - 1)
+    y0 = torch.floor(y).long().clamp(0, h - 1)
+    y1 = torch.ceil(y).long().clamp(0, h - 1)
+    xd = x - torch.floor(x)
+    yd = y - torch.floor(y)
+    flat = rast.depth.reshape(rast.depth.shape[0], -1)
+
+    def sample(yi, xi):
+        return torch.gather(flat, 1, yi * w + xi)
+
+    depth = (
+        sample(y0, x0) * (1 - xd) * (1 - yd)
+        + sample(y0, x1) * xd * (1 - yd)
+        + sample(y1, x0) * (1 - xd) * yd
+        + sample(y1, x1) * xd * yd
+    )
+    return (z < depth + zrange * 0.02).float()

@@ -75,6 +75,15 @@ def rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile):
     return rast, (bufs["attr_img"] if face_attrs is not None else None)
 
 
+def rasterize(face_verts_pix: torch.Tensor, h: int, w: int, tile: int = 32,
+              max_tris_per_tile: int = 512) -> RasterOutput:
+    """Rasterize (B, F, 3, 3) pixel-space faces without attributes: kernel
+    1 on CUDA tensors, :func:`rasterize_plain` on CPU ones."""
+    if face_verts_pix.is_cuda:
+        return rasterize_cuda(face_verts_pix, None, h, w, tile, max_tris_per_tile)[0]
+    return rasterize_plain(face_verts_pix, None, h=h, w=w, tile=tile, max_tris_per_tile=max_tris_per_tile)[0]
+
+
 def kernel_inputs(face_verts_pix, face_attrs, h, w, tile):
     """(B, F, 3, 3) corners and (B, F, 3, D) attributes (D = 0 without
     attributes) as contiguous float32, checked against what the kernel

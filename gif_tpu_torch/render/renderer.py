@@ -8,6 +8,11 @@ card), and emit
 
   textured = albedo  *  SH9 shading                       in [0, 1]
   normal   = interpolated unit normals mapped to [0, 1]
+
+``constant_albedo`` replaces the PCA albedo with a grey level: the
+bilinear lookup of a constant map is the level times the weight of the
+taps inside the map, computed here without a texture (no kernel-2
+launch).  :class:`FlameRenderer` is the reference ``OverLayViz`` façade.
 """
 
 from __future__ import annotations
@@ -23,6 +28,13 @@ from gif_tpu_torch.render.raster import auto_max_tris_per_tile, to_pixel_space
 from gif_tpu_torch.render.raster_cuda import rasterize_with_attrs
 from gif_tpu_torch.render.sampler_cuda import grid_sample
 from gif_tpu_torch.render.shading import albedo_from_tex_code, sh9_shading
+
+
+OVERFLOW_MESSAGE = (
+    "rasterizer tile overflow: candidate triangles were dropped; "
+    "raise max_tris_per_tile (or pass max_tris_per_tile=None for "
+    "mesh-derived auto-sizing)"
+)
 
 
 class RenderedMaps(NamedTuple):
@@ -47,6 +59,8 @@ def render_tex_and_normal(
     image_size: int = 256,
     tile: int = 32,
     max_tris_per_tile: int | None = 384,
+    constant_albedo: float | None = None,
+    assert_no_overflow: bool = False,
 ) -> RenderedMaps:
     """Render textured + normal-map conditioning images from FLAME codes.
 
@@ -59,6 +73,10 @@ def render_tex_and_normal(
       max_tris_per_tile: per-tile candidate capacity; ``None`` sizes it from
         the mesh (raster.auto_max_tris_per_tile).  Overflow is reported per
         sample in ``RenderedMaps.overflow``.
+      constant_albedo: if set, this grey level replaces the PCA albedo.
+      assert_no_overflow: raise ``RuntimeError`` if any tile dropped
+        triangles; the check reads the flags back to the host, so only
+        this switch makes the call wait on the device.
     """
     b = shapecode.shape[0]
     dev, dtype = shapecode.device, shapecode.dtype
@@ -87,15 +105,71 @@ def render_tex_and_normal(
     pix_uv = interp[..., 3:5]
     pix_norm = pix_norm / torch.clamp(torch.linalg.norm(pix_norm, dim=-1, keepdim=True), min=1e-6)
 
-    albedo_map = albedo_from_tex_code(
-        res.tensor("tex_mean", dev, dtype), res.tensor("tex_dirs", dev, dtype), texcode
-    )
     # UV in [0,1] -> grid in [-1,1].
-    albedo = grid_sample(albedo_map, pix_uv * 2.0 - 1.0)
+    grid = pix_uv * 2.0 - 1.0
+    if constant_albedo is None:
+        albedo_map = albedo_from_tex_code(
+            res.tensor("tex_mean", dev, dtype), res.tensor("tex_dirs", dev, dtype), texcode
+        )
+        albedo = grid_sample(albedo_map, grid)
+    else:
+        albedo = constant_map_sample(float(constant_albedo), grid, res.tex_mean.shape[0])
 
     textured = albedo * sh9_shading(pix_norm, lightcode)
     mask = rast.tri_id >= 0
     m3 = mask[..., None]
     textured = torch.where(m3, textured, 0.0)
     normal_img = torch.where(m3, pix_norm * 0.5 + 0.5, 0.0)
-    return RenderedMaps(textured, normal_img, mask, rast.depth, rast.tile_overflow.any(-1))
+    overflow = rast.tile_overflow.any(-1)
+    if assert_no_overflow and bool(overflow.any()):
+        raise RuntimeError(OVERFLOW_MESSAGE)
+    return RenderedMaps(textured, normal_img, mask, rast.depth, overflow)
+
+
+def constant_map_sample(value: float, grid: torch.Tensor, r: int) -> torch.Tensor:
+    """The bilinear lookup (zeros padding, ``align_corners=False``) of an
+    (r, r, 3) map filled with ``value`` at ``grid`` (B, H, W, 2): each tap
+    of :func:`shading.grid_sample_bilinear` contributes ``value`` where it
+    lies inside the map, 0 outside, in the same order.  (B, H, W, 3)."""
+    gx = (grid[..., 0] + 1.0) * (r / 2.0) - 0.5
+    gy = (grid[..., 1] + 1.0) * (r / 2.0) - 0.5
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    dx = (gx - x0)[..., None]
+    dy = (gy - y0)[..., None]
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy <= r - 1) & (xx >= 0) & (xx <= r - 1)
+        return torch.where(inside, value, 0.0)[..., None]
+
+    out = (
+        tap(y0, x0) * (1 - dx) * (1 - dy)
+        + tap(y0, x0 + 1) * dx * (1 - dy)
+        + tap(y0 + 1, x0) * (1 - dx) * dy
+        + tap(y0 + 1, x0 + 1) * dx * dy
+    )
+    return out.expand(out.shape[:-1] + (3,))
+
+
+class FlameRenderer:
+    """The reference ``OverLayViz`` façade over
+    :func:`render_tex_and_normal`."""
+
+    def __init__(self, res, image_size: int = 256):
+        self.res = res
+        self.image_size = image_size
+
+    def get_flame_faces(self) -> torch.Tensor:
+        return self.res.tensor("faces", "cpu", torch.long)
+
+    def get_rendered_mesh(self, flame_params, camera_params, constant_albedo=None):
+        """(shape, exp, pose, light, tex), cam -> (normal, textured), both
+        floored onto the 8-bit grid in [0, 1]."""
+        shape, exp, pose, light, tex = flame_params
+        maps = render_tex_and_normal(
+            self.res, shape, exp, pose, tex, light, camera_params,
+            image_size=self.image_size, constant_albedo=constant_albedo,
+        )
+        textured = torch.floor(torch.clamp(maps.textured, 0.0, 1.0) * 255.0) / 255.0
+        normal = torch.floor(torch.clamp(maps.normal, 0.0, 1.0) * 255.0) / 255.0
+        return normal, textured

@@ -210,7 +210,7 @@ def main(argv=None):
     device = resolve_device(args.device)  # refuse before loading anything
     cfg = get_config(args.run_id, embedding_vocab_size=args.vocab)
     res = load_flame_resources(args.flame_resources)
-    g_state = load_generator_params(cfg, args.converted_params, seed=args.seed)
+    g_state = load_generator_params(cfg, converted_params=args.converted_params, seed=args.seed)
     server = GifServer(cfg, res, g_state, args.batch_size, args.max_wait_ms, device=device)
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(server))
     print(f"serving on :{args.port} (batch {args.batch_size}, {server.sampler.device})")

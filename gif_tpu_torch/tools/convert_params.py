@@ -14,7 +14,8 @@ the conversion is a flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
 - the identity-embedding buffer is copied as it is, never regenerated.
 
 Adam's moments are elementwise, so they take the same changes as the
-parameters they belong to.
+parameters they belong to.  :func:`train_state_trees` goes the other way:
+a port train state -> the trees pickle's four trees.
 
 Run:
 
@@ -24,6 +25,8 @@ Run:
 from __future__ import annotations
 
 import argparse
+import re
+
 import numpy as np
 import torch
 
@@ -63,6 +66,49 @@ def convert_generator_params(g_params: dict, buffers: dict) -> dict:
     for name, arr in _flatten(buffers):
         sd[name] = _tensor(arr)
     return sd
+
+
+# The port's names of flax ``nn.Conv`` kernels (G's condition injection);
+# every other 4-D ``weight`` is an EqualConv / ModulatedConv weight.
+_FLAX_CONV = re.compile(r"\.noise\.conv\d+\.weight$")
+
+
+def to_flax_params(sd: dict) -> dict:
+    """The inverse of :func:`convert_params`: a port state_dict (without
+    buffers) -> a nested flax-layout tree of float32 numpy arrays."""
+    tree = {}
+    for name, t in sd.items():
+        arr = t.detach().cpu().float().numpy()
+        if _FLAX_CONV.search(name):
+            name = name[: -len(".weight")] + ".kernel"
+            arr = arr.transpose(2, 3, 1, 0)
+        elif name.endswith(".weight") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        elif name.endswith("const_input"):
+            arr = arr.transpose(0, 2, 3, 1)
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def train_state_trees(state) -> dict:
+    """A port ``TrainState`` -> the four trees of the pickle the
+    ``convert_checkpoint`` tools write (``g_params``, ``g_ema_params``,
+    ``d_params``, ``buffers``), which ``--converted_ckpt`` loads in both
+    packages."""
+
+    def params(module):
+        return to_flax_params({k: v for k, v in module.state_dict().items() if k != "embedding"})
+
+    return {
+        "g_params": params(state.generator),
+        "g_ema_params": params(state.g_ema),
+        "d_params": params(state.discriminator),
+        "buffers": {"embedding": state.generator.embedding.detach().cpu().float().numpy()},
+    }
 
 
 def convert_discriminator_params(d_params: dict) -> dict:

@@ -29,6 +29,11 @@ from gif_tpu_torch.train.state import TrainState
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 
+def _steps(directory: str) -> list:
+    """The checkpoint steps under ``directory``, ascending."""
+    return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(directory)) if m)
+
+
 class CheckpointManager:
     """Saves every ``save_every`` steps (the reference's cadence: 1000),
     keeps the newest ``max_to_keep``; with a process ``group``, saves are
@@ -78,7 +83,7 @@ class CheckpointManager:
 
     def all_steps(self) -> list:
         """Every retained checkpoint step, ascending."""
-        return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
+        return _steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -88,9 +93,17 @@ class CheckpointManager:
         """Load the checkpoint of ``step`` (default the latest) into
         ``state`` (from ``create_train_state``), in place, onto the
         devices its tensors live on; returns it."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint found under {self.directory}")
-        sd = torch.load(self.path(step), map_location=state.pl_mean.device, weights_only=True)
-        state.load_state_dict(sd)
+        state.load_state_dict(self.read(self.directory, step, map_location=state.pl_mean.device))
         return state
+
+    @staticmethod
+    def read(directory: str, step: Optional[int] = None, map_location="cpu") -> dict:
+        """The saved :meth:`TrainState.state_dict` of ``step`` (default the
+        latest) under ``directory``, without creating the directory."""
+        if step is None:
+            steps = _steps(directory) if os.path.isdir(directory) else []
+            if not steps:
+                raise FileNotFoundError(f"no checkpoint found under {directory}")
+            step = steps[-1]
+        path = os.path.join(directory, f"{step:09d}.pt")
+        return torch.load(path, map_location=map_location, weights_only=True)

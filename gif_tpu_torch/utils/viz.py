@@ -1,9 +1,12 @@
-"""Sample grids (port of :mod:`gif_tpu.utils.viz`).
+"""Sample grids, image-set dumps and animations (port of
+:mod:`gif_tpu.utils.viz`).
 
 ``VisualizationSaver`` writes 10x5 grids of fixed-condition samples with
 the iteration, resolution and FID in the filename —
 ``{iter:06d}_res{res}_fid_{fid:.2f}.png`` under ``sample/{run_id}/``, the
 reference's naming, which tooling parses to plot FID curves.
+``save_set_of_images`` dumps a batch as numbered PNGs and
+``save_animation`` writes frames as an animated GIF.
 """
 
 from __future__ import annotations
@@ -60,3 +63,24 @@ class VisualizationSaver:
         path = os.path.join(self.dir, f"{iteration + 1:06d}_res{resolution}_fid_{fid:.2f}.png")
         save_png(path, grid)
         return path
+
+
+def save_set_of_images(path: str, prefix: str, images_01: np.ndarray) -> None:
+    """Numbered PNG dump ``{path}/{prefix}{i}.png`` of [0, 1] images."""
+    os.makedirs(path, exist_ok=True)
+    imgs = np.clip(np.asarray(images_01) * 255, 0, 255).astype(np.uint8)
+    for i, img in enumerate(imgs):
+        save_png(os.path.join(path, f"{prefix}{i}.png"), img)
+
+
+def save_animation(frames, path: str, fps: int = 15) -> None:
+    """Write uint8 frames (arrays or PIL Images) as an animated GIF; only
+    ``.gif`` output is supported (no ffmpeg)."""
+    from PIL import Image
+
+    imgs = [f if isinstance(f, Image.Image) else Image.fromarray(f) for f in frames]
+    if not imgs:
+        raise ValueError("save_animation got no frames")
+    if not path.endswith(".gif"):
+        raise ValueError("only .gif output is supported without ffmpeg")
+    imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=int(1000 / fps), loop=0)

@@ -420,3 +420,67 @@ def test_two_rank_step_on_one_card_stays_bit_equal(cuda_device, tmp_path):
     assert r0["r1"] > 0 and r0["used"] == r1["used"] == 16
     for r in (r0, r1):
         assert all(n > 0 for n in r["launches"]), r["launches"]
+
+
+def _posed_ndc(device):
+    """Three posed heads of the 503-vertex mesh through the renderer's
+    camera and y / z flips, on ``device``."""
+    from gif_tpu_torch.flame.camera import batch_orth_proj
+    from gif_tpu_torch.flame.decoder import flame_decode
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+
+    res = synthetic_flame_resources(seed=1, n_vertices=503)
+    rng = np.random.default_rng(12)
+    codes = [torch.from_numpy((rng.standard_normal((3, n)) * s).astype(np.float32)).to(device)
+             for n, s in ((100, 0.5), (50, 0.5), (6, 0.3))]
+    cam = torch.tensor([[8.0, 0.0, 0.0], [6.0, 0.02, -0.03], [9.0, -0.01, 0.01]], device=device)
+    trans = batch_orth_proj(flame_decode(res, *codes), cam)
+    return res, codes, cam, torch.cat([trans[:, :, :1], -trans[:, :, 1:]], dim=2)
+
+
+def _plain_raster(monkeypatch):
+    monkeypatch.setattr(raster_cuda, "rasterize_cuda", lambda fv, a, h, w, tile, cap: raster.rasterize_plain(
+        fv, a, h=h, w=w, tile=tile, max_tris_per_tile=cap))
+
+
+@pytest.mark.parametrize("which", ["get_visibility", "get_visibility_z"])
+def test_visibility_on_the_card_equals_the_plain_path(cuda_device, monkeypatch, which):
+    """Per-vertex visibility through kernel 1 (one launch) equals the same
+    function through the plain rasterizer on the same card tensors."""
+    res, _, _, verts = _posed_ndc(cuda_device)
+    fn = getattr(raster, which)
+    before = raster_cuda.rasterize_with_attrs.launches
+    got = fn(verts, res.faces, 256, 256)
+    torch.cuda.synchronize()
+    assert raster_cuda.rasterize_with_attrs.launches == before + 1
+    _plain_raster(monkeypatch)
+    want = fn(verts, res.faces, 256, 256)
+    assert torch.equal(got, want) and got.is_cuda
+    assert bool((want > 0).any()) and bool((want == 0).any())
+
+
+def test_constant_albedo_render_on_the_card_equals_the_plain_render(cuda_device, monkeypatch):
+    """``constant_albedo`` on the card: kernel 1 launches once, kernel 2
+    never, and the maps equal the render through the plain rasterizer —
+    the normal map within 1e-5: the vertex normals are ``index_add_`` sums,
+    whose atomics add in no fixed order on the card (the ambient-only
+    light makes the textured map independent of them)."""
+    from gif_tpu_torch.render import renderer
+
+    res, (shape, exp, pose), cam, _ = _posed_ndc(cuda_device)
+    tex = torch.zeros((3, 50), device=cuda_device)
+    light = torch.zeros((3, 9, 3), device=cuda_device)
+    light[:, 0] = 3.0
+    before = raster_cuda.rasterize_with_attrs.launches, sampler_cuda.grid_sample.launches
+    got = renderer.render_tex_and_normal(res, shape, exp, pose, tex, light, cam, image_size=256,
+                                         max_tris_per_tile=None, constant_albedo=0.6)
+    torch.cuda.synchronize()
+    assert (raster_cuda.rasterize_with_attrs.launches, sampler_cuda.grid_sample.launches) == (
+        before[0] + 1, before[1])
+    _plain_raster(monkeypatch)
+    want = renderer.render_tex_and_normal(res, shape, exp, pose, tex, light, cam, image_size=256,
+                                          max_tris_per_tile=None, constant_albedo=0.6)
+    for name in ("textured", "mask", "depth", "overflow"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.normal - want.normal).abs().max().item() <= 1e-5
+    assert bool(want.mask.any())
