@@ -136,6 +136,27 @@ Phases (each raises on failure; nothing is caught):
     px) equal to the plain rasterizer's, ``FlameRenderer`` with
     ``constant_albedo`` (one raster launch, no sampler launch, maps equal
     to the plain render).
+21. the resampling modes, the bench and the new tools: the run_id-8 R1
+    step at full width (batch 16) under each resampling mode
+    (``GIF_TPU_TORCH_RESAMPLE`` legacy / even / phase) from
+    one seeded state and batch — G's bf16 images against the same G in f32,
+    the recorded warm-up R1 step (every launch held to its plain version)
+    against legacy's losses, 3 counted steps (counters 0 just before, read
+    just after; ``phase`` launches kernel 4 fewer times), step times with
+    the modes in turns; ``python -m gif_tpu_torch.bench`` for run_id 8 and
+    0 in their own processes (the JSON line echoed); ``profile_step``
+    (run_id 8 and 0), ``mfu_report`` at the bench's images/s and
+    ``blur_hw_check``; the eye-camera regressor on the FLAME-sized mesh
+    (solver targets and training on the card, rows/s, held-out MSE below
+    the mean's); the deterministic resume in its own process with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (``train(deterministic=True)``: 10
+    steps, checkpoint at 5, resumed: every resumed step's d_loss and
+    g_loss and the final weights bit-equal; kernel 6's fixed-order
+    accumulate and ``index_add_`` bit-equal across two calls; the flag's
+    cost on bare steps); ``python -m gif_tpu_torch.serve --ckpt`` on that
+    run's checkpoint against a ``FlameSampler`` from it; and both
+    converters on fabricated inputs at the real sizes, timed.  Phase 16's
+    resume check stays as it was for the default, non-deterministic mode.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -158,7 +179,10 @@ requests'; ``run_id0.launches``: the counted run_id-0 steps';
 ``run_id8_reg``, ``run_id0_direct`` and ``render_grad``: phases 13-15's
 counted launches; ``loop``: phases 16-17's, the ``train()`` run's and its
 split; ``data_parallel``: phase 18's steps' and each phase-19 rank's
-per run; ``generation``: phase 20's six full-width scripts'; kernel 6's
+per run; ``generation``: phase 20's six full-width scripts';
+``phase21``: the counted launches of each resampling mode's 3 steps and
+of its recorded warm-up step, the deterministic run's and its resume's
+(kernel 6 also its fixed-order timing); kernel 6's
 ``albedo``: its numbers at the albedo
 lookup's gradient), the card's name and power limit as nvidia-smi reports
 them, and the result line.
@@ -1697,7 +1721,7 @@ def _truncate_run(run: str, keep_step: int) -> None:
         w.writeheader()
         w.writerows(r for r in rows if int(r["step"]) <= keep_step)
     grids = os.path.join(run, "sample", os.path.basename(run))
-    for g in os.listdir(grids):
+    for g in os.listdir(grids) if os.path.isdir(grids) else []:  # a run without FID draws no grids
         if int(g[:6]) > keep_step:
             os.remove(os.path.join(grids, g))
 
@@ -2676,6 +2700,519 @@ def generation_path(counters: dict, smi: str):
     return launches, errs
 
 
+# --- Phase 21: resampling modes, the bench and measurement scripts, the eye
+# regressor, the deterministic resume, serving a checkpoint, the converters ---
+
+RESAMPLE_MODES = ("legacy", "even", "phase")
+# What the modes may differ by, on one set of weights and one batch: G's
+# bf16 images are held to the same G in f32 (legacy), each mode's largest
+# difference at most RESAMPLE_IMAGE_FACTOR times legacy's own (``phase``
+# folds the FIR into bf16 weights: other roundings, not more of them);
+# the warm-up step's d_loss and g_loss within 5e-2 of legacy's, R1 (D
+# alone, a squared gradient norm) within 0.25.
+RESAMPLE_IMAGE_FACTOR, RESAMPLE_LOSS_RTOL, RESAMPLE_R1_RTOL = 2.0, 5e-2, 0.25
+# The deterministic resume: DET_STEPS steps, a checkpoint half-way, R1 in
+# the resumed half (r1_interval 8: step 7), on a DET_DATASET-frame render
+# dataset.
+DET_STEPS, DET_DATASET, DET_R1_INTERVAL = 10, 128, 8
+EYE_ROWS, EYE_EPOCHS = 16384, 5
+
+
+def resample_modes(res, counters: dict, smi: str):
+    """Phase 21, first part: the run_id-8 R1 step at full width (batch 16)
+    under each resampling mode, from the same seeded state and batch: G's
+    images of four condition maps before the step against the same G in
+    f32, and the recorded warm-up R1 step's losses against ``legacy``'s,
+    every launch of that step held to its plain version; then 3 counted
+    steps (13-15, R1 on the third) with every counter 0 just before and
+    read just after; then step times with the modes in turns on one state
+    (the mode is read at every call).  Returns ({mode: launches}, {mode:
+    recorded warm-up launches}, {kind: max_abs_err})."""
+    import torch
+
+    from gif_tpu_torch.models.generator import StyledGenerator
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    cfg = get_config(8, batch_size=TRAIN_BATCH)
+    batch = train_batch(cfg, TRAIN_BATCH, "cuda")
+    rng = np.random.default_rng(21)
+    cond = torch.as_tensor(rng.uniform(-1, 1, (4, cfg.max_size, cfg.max_size, cfg.cond_channels)).astype(np.float32),
+                           device="cuda")
+    idx = torch.as_tensor([3, 1000, 20000, 69000], device="cuda")
+    saved = os.environ.get("GIF_TPU_TORCH_RESAMPLE")
+    out, launches, warm, errs = {}, {}, {}, {}
+    try:
+        for mode in RESAMPLE_MODES:
+            os.environ["GIF_TPU_TORCH_RESAMPLE"] = mode
+            state = create_train_state(cfg, seed=0)
+            step = make_train_step(cfg, res, max_tris_per_tile=res.n_faces, generator=torch.Generator().manual_seed(0))
+            with torch.inference_mode():
+                images = state.generator(cond, input_indices=idx, step=cfg.max_step).float()
+                if mode == "legacy":
+                    g32 = StyledGenerator.from_config(get_config(8, compute_dtype="float32")).cuda().eval()
+                    g32.load_state_dict(state.generator.state_dict())
+                    exact = g32(cond, input_indices=idx, step=cfg.max_step).float()
+                    del g32
+            state, m0, warm[mode], e = record_warmup(step, state, batch, RUN8_KERNELS, f"resample {mode}")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            state.step = 13
+            steps, launches[mode], peak, moved = run_train_steps(step, state, batch, counters)
+            for i, dt, m, _ in steps:
+                assert all(np.isfinite(v) for v in m.values()) and (m["r1"] > 0) == (i == 15), (mode, i, m)
+            assert all(v > 0 for v in moved.values()), (mode, moved)
+            assert all(launches[mode][KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), (mode, launches[mode])
+            out[mode] = ((images - exact).abs().max().item(), m0)
+            log(f"phase resample {mode}: counted steps 13-15 at batch {TRAIN_BATCH}, peak memory "
+                f"{peak / 2**30:.2f} GiB; launches {launches[mode]}")
+            if mode != RESAMPLE_MODES[-1]:
+                del state, step, steps
+                torch.cuda.empty_cache()
+
+        # Step times in turns, on the last mode's state: plain steps
+        # (legacy, even, phase, phase, even, legacy) twice, R1 steps once.
+        times_ms = {m: {"plain": [], "r1": []} for m in RESAMPLE_MODES}
+        order = RESAMPLE_MODES + RESAMPLE_MODES[::-1]
+        for kind, i, rounds in (("plain", 16, 2), ("r1", 15, 1)):
+            for mode in order * rounds:
+                os.environ["GIF_TPU_TORCH_RESAMPLE"] = mode
+                state.step = i
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times_ms[mode][kind].append(1e3 * (time.perf_counter() - t0))
+                assert (m["r1"].item() > 0) == (kind == "r1")
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("GIF_TPU_TORCH_RESAMPLE", None)
+        else:
+            os.environ["GIF_TPU_TORCH_RESAMPLE"] = saved
+    ref_err, ref_m = out["legacy"]
+    log(f"phase resample legacy (bf16) vs the same G in f32: G images (4 x 256 px) max |diff| {ref_err:.4g}")
+    for mode in ("even", "phase"):
+        img_err, m = out[mode]
+        rel = {k: abs(m[k] - ref_m[k]) / abs(ref_m[k]) for k in ("d_loss", "g_loss", "r1")}
+        log(f"phase resample {mode} (bf16) vs the same G in f32 (legacy): G images max |diff| {img_err:.4g} (tol "
+            f"{RESAMPLE_IMAGE_FACTOR} x legacy's {ref_err:.4g}); its warm-up R1 step against legacy's, relative "
+            f"{rel} (tol d_loss / g_loss {RESAMPLE_LOSS_RTOL}, r1 {RESAMPLE_R1_RTOL})")
+        assert img_err <= RESAMPLE_IMAGE_FACTOR * ref_err, (mode, img_err, ref_err)
+        assert rel["d_loss"] <= RESAMPLE_LOSS_RTOL and rel["g_loss"] <= RESAMPLE_LOSS_RTOL, (mode, rel)
+        assert rel["r1"] <= RESAMPLE_R1_RTOL, (mode, rel)
+    blur = {mode: (launches[mode]["fir_blur"], launches[mode]["fir_blur_vjp"]) for mode in RESAMPLE_MODES}
+    assert blur["phase"][0] < blur["legacy"][0] and blur["phase"][1] < blur["legacy"][1], blur
+    assert blur["even"] == blur["legacy"], blur
+    med = {m: {k: round(float(np.median(v)), 2) for k, v in t.items()} for m, t in times_ms.items()}
+    log(f"phase resample step times in turns (host clock, synchronized; ms): {times_ms}; medians {med}; kernel-4 "
+        f"launches (forward, VJP) in 3 counted steps {blur}; on {smi}")
+    return launches, warm, errs
+
+
+def run_module(args: list, timeout: int = 600, env=None) -> str:
+    """``python -m <args>`` from the repository root in a child process;
+    its standard output (raises with its errors when it fails)."""
+    p = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                       env=env)
+    assert p.returncode == 0, f"{args} exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}"
+    return p.stdout
+
+
+def bench_lines() -> dict:
+    """Phase 21: ``python -m gif_tpu_torch.bench`` for run_id 8 and 0, each
+    in its own process, echoing its JSON line."""
+    lines = {}
+    for run_id in (8, 0):
+        t0 = time.perf_counter()
+        line = json.loads(run_module(["gif_tpu_torch.bench", "--run_id", str(run_id)]).strip().splitlines()[-1])
+        log(f"phase bench run_id {run_id} ({time.perf_counter() - t0:.1f} s, its own process): {json.dumps(line)}")
+        keys = ["metric", "value", "unit", "vs_baseline", "spread", "chains", "flops_per_step", "mfu"]
+        assert list(line)[:len(keys)] == keys and line["value"] > 0 and len(line["chains"]) == 3, line
+        assert run_id == 8 or line["render_overflow"] == 0.0, line
+        lines[run_id] = line
+    return lines
+
+
+def measurement_scripts(tmp: str, bench: dict, smi: str) -> dict:
+    """Phase 21: ``profile_step`` (run_id 8 and 0), ``mfu_report`` at the
+    bench's images/s, and ``blur_hw_check``, in this process."""
+    import gc
+
+    import torch
+
+    from gif_tpu_torch.scripts import blur_hw_check, mfu_report, profile_step
+
+    out = {}
+    for run_id in (8, 0):
+        t0 = time.perf_counter()
+        prof = profile_step.main(["--run_id", str(run_id), "--out_dir", os.path.join(tmp, f"profile_{run_id}")])
+        log(f"phase profile_step run_id {run_id} ({time.perf_counter() - t0:.1f} s): {prof['wall_ms_per_step']:.2f} ms "
+            f"a step host clock, device busy {prof['busy_ms_per_step']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['device_ops_per_step']:.0f} device ops a step; top ops (ms a step) "
+            f"{[(n[:60], round(ms, 3)) for n, ms in prof['top_ops'][:8]]}")
+        assert prof["device_ops_per_step"] > 0 and prof["busy_share"] > 0, prof
+        prof.pop("top_ops")
+        out[f"profile_{run_id}"] = prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mfu = mfu_report.main(["--run_id", str(run_id), "--imgs_per_sec", str(bench[run_id]["value"])])
+        log(f"phase mfu_report run_id {run_id} ({time.perf_counter() - t0:.1f} s): {mfu}")
+        assert mfu["step_flops"] > mfu["g_forward_flops"] > 0 and mfu["peak_flops_bf16"], mfu
+        out[f"mfu_{run_id}"] = mfu
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = blur_hw_check.main(["--iters", "20"])
+    log(f"phase blur_hw_check ({time.perf_counter() - t0:.1f} s): {rows}; on {smi}")
+    # bf16 in and out: one bf16 step of the largest value apart at most.
+    assert all(r["rel_err"] <= 2.0**-7 and r["grad_rel_err"] <= 2.0**-6 for r in rows), rows
+    out["blur_hw_check"] = rows
+    return out
+
+
+def eye_regressor_phase(res, smi: str) -> dict:
+    """Phase 21: the eye-camera regressor on the FLAME-sized synthetic mesh:
+    EYE_ROWS rows of solver targets generated on the card (shape 0-2,
+    expression 0-2 and the pose varied: the regressor's features), then
+    ``train_regressor`` for EYE_EPOCHS epochs on the card; rows/s of both
+    and the held-out MSE against predicting the training mean."""
+    import torch
+
+    from gif_tpu_torch.flame.eye_regressor import generate_training_data, train_regressor
+
+    rng = np.random.default_rng(22)
+    flame = np.zeros((EYE_ROWS, 236), np.float32)
+    flame[:, :3] = rng.standard_normal((EYE_ROWS, 3)) * 0.3
+    flame[:, 100:103] = rng.standard_normal((EYE_ROWS, 3)) * 0.2
+    flame[:, 150:156] = rng.standard_normal((EYE_ROWS, 6)) * 0.05
+    generate_training_data(res, flame[:256], device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y = generate_training_data(res, flame, batch_size=1024, device="cuda")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg = train_regressor(res, flame, epochs=EYE_EPOCHS, batch_size=256, lr=1e-3, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0 - gen_s  # train_regressor generates its data again first
+    n_val = max(1, int(EYE_ROWS * 0.1))
+    base = float(np.mean((y[-n_val:] - y[:-n_val].mean(0)) ** 2))
+    n_steps = EYE_EPOCHS * ((EYE_ROWS - n_val) // 256)
+    out = {"rows": EYE_ROWS, "data_rows_per_s": EYE_ROWS / gen_s, "train_rows_per_s": n_steps * 256 / train_s,
+           "val_mse": reg.val_mse, "mean_baseline_mse": base}
+    log(f"phase eye regressor (mesh {res.n_vertices} vertices, FLAME's eye vertex ids): solver targets "
+        f"{out['data_rows_per_s']:.0f} rows/s ({EYE_ROWS} rows, batch 1024), training {EYE_EPOCHS} epochs "
+        f"({n_steps} Adam steps of 256) {out['train_rows_per_s']:.0f} rows/s; held-out MSE {reg.val_mse:.6g} "
+        f"against the predict-the-mean {base:.6g}; on {smi}")
+    assert np.isfinite(reg.val_mse) and reg.val_mse < base, out
+    return out
+
+
+def deterministic_child(tmp: str) -> None:
+    """Phase 21's deterministic run, in its own process started with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS reads it once): phase 16's
+    resume with ``train(deterministic=True)`` — DET_STEPS steps at run_id 8,
+    full width, batch 16, checkpoint half-way, then the run cut back to it
+    and resumed — every step's d_loss and g_loss, and the final weights,
+    bit-equal; two identical kernel-6 calls and ``index_add_`` calls
+    bit-equal under the flag; and the cost of the flag on bare steps
+    (run_id 8 plain and R1, run_id 0 plain; off / on / on / off).  Writes
+    ``tmp/det.json``."""
+    import shutil
+
+    import torch
+
+    from gif_tpu_torch import kernels
+    from gif_tpu_torch.data.pipeline import FlameDataset, SyntheticRenderDataset
+    from gif_tpu_torch.device import set_deterministic
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.render import sampling_ops, scatter_cuda
+    from gif_tpu_torch.train import loop
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    kernels.build()
+    res = synthetic_flame_resources()
+    counters = kernel_counters()
+    cfg = get_config(8, batch_size=TRAIN_BATCH, fid_every=10**9, checkpoint_every=DET_STEPS // 2,
+                     r1_interval=DET_R1_INTERVAL)
+    ds = SyntheticRenderDataset(res, n=DET_DATASET, size=cfg.max_size, seed=0, cache_dir=os.path.join(tmp, "synth"),
+                                max_tris_per_tile=res.n_faces)
+    run_kw = dict(total_iters=DET_STEPS, log_every=DET_STEPS // 2, max_tris_per_tile=res.n_faces, deterministic=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with LoopProbe(counters, record=False) as a:
+        loop.train(cfg, ds, res, os.path.join(tmp, "a"), **run_kw)
+        torch.cuda.synchronize()
+    run_s, launches = time.perf_counter() - t0, {k: fn.launches for k, fn in counters.items()}
+    digest_a = param_digest(a.state)
+    shutil.copytree(os.path.join(tmp, "a"), os.path.join(tmp, "b"))
+    _truncate_run(os.path.join(tmp, "b", "8"), DET_STEPS // 2)
+    for fn in counters.values():
+        fn.launches = 0
+    with LoopProbe(counters, record=False) as b:
+        loop.train(cfg, FlameDataset(ds.images, ds.flame_params), res, os.path.join(tmp, "b"), **run_kw)
+        torch.cuda.synchronize()
+    launches_b = {k: fn.launches for k, fn in counters.items()}
+    la = {i: (m["d_loss"].item(), m["g_loss"].item()) for i, m in a.metrics}
+    lb = {i: (m["d_loss"].item(), m["g_loss"].item()) for i, m in b.metrics}
+    r1 = [i for i, m in b.metrics if m["r1"].item() > 0]
+    result = {"run_s": run_s, "launches": launches, "resume_launches": launches_b, "losses": la, "resumed": lb,
+              "r1_steps": r1, "digest_equal": param_digest(b.state) == digest_a,
+              "batches_equal": all(b.digests[i] == a.digests[i] for i in b.digests),
+              "flag_off_after": not torch.are_deterministic_algorithms_enabled(),
+              "ckpt": os.path.join(tmp, "b", "8", "checkpoint")}
+    del a, b
+    torch.cuda.empty_cache()
+
+    # Kernel 6 (the fixed-order accumulate) and index_add_ twice on the same
+    # inputs under the flag, at the run_id-0 steal's and the vertex
+    # normals' shapes.
+    rng = np.random.default_rng(23)
+    g = torch.as_tensor(rng.standard_normal((15, 20000, 3)).astype(np.float32), device="cuda")
+    pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (15, 20000, 2)).astype(np.float32), device="cuda")
+    rows = torch.as_tensor(rng.integers(0, 5023, 16 * 30000), device="cuda")
+    src = torch.as_tensor(rng.standard_normal((16 * 30000, 3)).astype(np.float32), device="cuda")
+
+    def index_add():
+        return torch.zeros((5023, 3), device="cuda").index_add_(0, rows, src)
+
+    pair = {}
+    for det in (False, True):
+        set_deterministic(det)
+        pair[det] = dict(
+            scatter=[scatter_cuda.scatter_bilinear(g, pts, 256, 256) for _ in range(2)],
+            index_add=[index_add() for _ in range(2)],
+            scatter_ms=queued_ms(lambda: scatter_cuda.scatter_bilinear(g, pts, 256, 256)),
+            index_add_ms=queued_ms(index_add),
+        )
+    set_deterministic(False)
+    plain = sampling_ops.scatter_bilinear_plain(g, pts, 256, 256)
+    result["kernel6"] = {
+        "fixed_equal": bool(torch.equal(*pair[True]["scatter"])),
+        "default_equal": bool(torch.equal(*pair[False]["scatter"])),
+        "fixed_err": (pair[True]["scatter"][0] - plain).abs().max().item(),
+        "bar": 1e-5 * plain.abs().max().item() + 1e-7,
+        "fixed_ms": pair[True]["scatter_ms"], "default_ms": pair[False]["scatter_ms"],
+        "index_add_equal": bool(torch.equal(*pair[True]["index_add"])),
+        "index_add_default_equal": bool(torch.equal(*pair[False]["index_add"])),
+        "index_add_ms": pair[True]["index_add_ms"], "index_add_default_ms": pair[False]["index_add_ms"],
+    }
+    del pair, plain
+
+    # The flag's cost on bare steps, in turns within this process.
+    cost = {}
+    for run_id in (8, 0):
+        cfg_s = get_config(run_id, batch_size=TRAIN_BATCH)
+        state = create_train_state(cfg_s, seed=0)
+        step = make_train_step(cfg_s, res, max_tris_per_tile=res.n_faces, generator=torch.Generator().manual_seed(0))
+        batch = train_batch(cfg_s, TRAIN_BATCH, "cuda")
+        times_s = {False: {"plain": [], "r1": []}, True: {"plain": [], "r1": []}}
+        for det in (False, True, True, False):
+            set_deterministic(det)
+            kinds = (("plain", 16), ("plain", 16), ("plain", 16)) + ((("r1", 15),) if run_id == 8 else ())
+            for _, i in dict(kinds).items():  # warm-up after the switch, each kind of step
+                state.step = i
+                state, _ = step(state, batch)
+            for kind, i in kinds:
+                state.step = i
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times_s[det][kind].append(time.perf_counter() - t0)
+        set_deterministic(False)
+        cost[run_id] = {("on" if det else "off"): {k: 1e3 * float(np.median(v)) for k, v in d.items() if v}
+                        for det, d in times_s.items()}
+        del state, step, batch
+        torch.cuda.empty_cache()
+    result["cost_ms"] = cost
+    with open(os.path.join(tmp, "det.json"), "w") as f:
+        json.dump(result, f)
+
+
+def deterministic_resume(tmp: str, smi: str) -> dict:
+    """Phase 21: :func:`deterministic_child` in its own process; checks its
+    results here."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--deterministic-child", tmp], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900, env=env)
+    assert p.returncode == 0, f"deterministic child exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}"
+    with open(os.path.join(tmp, "det.json")) as f:
+        r = json.load(f)
+    k6 = r["kernel6"]
+    log(f"phase deterministic resume ({time.perf_counter() - t0:.1f} s, its own process, "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8, train(deterministic=True)): {DET_STEPS} steps at run_id 8, batch "
+        f"{TRAIN_BATCH}, R1 on {r['r1_steps']}, in {r['run_s']:.2f} s; per-step (d_loss, g_loss) "
+        f"{r['losses']}; resumed from step {DET_STEPS // 2}: {r['resumed']}; final weights equal "
+        f"{r['digest_equal']}; batches equal {r['batches_equal']}; launches {r['launches']}, resume "
+        f"{r['resume_launches']}")
+    log(f"phase deterministic kernel 6 (15 x 20000 points into 256 x 256 x 3): two calls under the flag equal "
+        f"{k6['fixed_equal']} (default accumulate: {k6['default_equal']}), fixed-order vs plain max_abs_err "
+        f"{k6['fixed_err']:.3g} (bar {k6['bar']:.3g}), {k6['fixed_ms']:.4f} ms fixed-order vs {k6['default_ms']:.4f} "
+        f"ms default; index_add_ (480000 rows into 5023 x 3) under the flag equal {k6['index_add_equal']} "
+        f"(default: {k6['index_add_default_equal']}), {k6['index_add_ms']:.4f} vs {k6['index_add_default_ms']:.4f} "
+        f"ms; the flag's cost on bare steps (ms, median, off / on in turns) {r['cost_ms']}; on {smi}")
+    resumed = {int(i): v for i, v in r["resumed"].items()}
+    first = {int(i): v for i, v in r["losses"].items()}
+    assert sorted(resumed) == list(range(DET_STEPS // 2, DET_STEPS)), sorted(resumed)
+    assert all(resumed[i] == first[i] for i in resumed), "a resumed step's losses differ from the run's"
+    assert r["digest_equal"] and r["batches_equal"] and r["flag_off_after"], r
+    assert DET_R1_INTERVAL - 1 in r["r1_steps"], r["r1_steps"]
+    assert k6["fixed_equal"] and k6["index_add_equal"] and k6["fixed_err"] <= k6["bar"], k6
+    assert all(r["launches"][KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), r["launches"]
+    return r
+
+
+def serve_checkpoint(ckpt: str, res, smi: str) -> None:
+    """Phase 21: ``python -m gif_tpu_torch.serve --ckpt`` (its
+    ``build_server``) on the deterministic run's checkpoint (run_id 8, full
+    width): 8 threaded requests, their images against a ``FlameSampler``
+    built from the same checkpoint on the same rows."""
+    from gif_tpu_torch.eval.sampling import FlameSampler, load_generator_params, random_flame_params
+    from gif_tpu_torch.serve import build_server
+
+    server, _ = build_server(["--run_id", "8", "--ckpt", ckpt, "--flame_resources", "synthetic", "--batch_size", "8"])
+    server.sampler.max_tris_per_tile = res.n_faces
+    try:
+        flames = random_flame_params(np.random.default_rng(24), 8)
+        ids = [(i * 7919) % server.cfg.embedding_vocab_size for i in range(8)]
+        got = {}
+
+        def request(i):
+            got[i] = server.generate(flames[i], identity=ids[i])
+
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "request did not finish"
+        sizes = list(server.batch_sizes)
+    finally:
+        server.stop()
+    sampler = FlameSampler(server.cfg, res, load_generator_params(server.cfg, ckpt=ckpt), batch_size=8,
+                           max_tris_per_tile=res.n_faces)
+    want = ((np.clip(sampler.sample(flames, np.asarray(ids))[0], -1, 1) + 1) * 127.5).astype(np.uint8)
+    diff = np.abs(np.stack([got[i] for i in range(8)]).astype(int) - want.astype(int))
+    log(f"phase serve --ckpt (run_id 8, full width, the deterministic run's checkpoint): 8 requests in batches "
+        f"{sizes}; served images against a FlameSampler from the same checkpoint: max |diff| {diff.max()} "
+        f"(uint8) on {float((diff > 0).mean()):.2g} of values (tol one level on < 0.001: a request batch may "
+        f"differ in rows); on {smi}")
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (diff.max(), (diff > 0).mean())
+
+
+def fabricate_flame_inputs(d: str, seed: int = 0) -> tuple:
+    """The FLAME 2020 artifact set at its real sizes, seeded: generic model
+    (5023 vertices, 9976 faces, 400 shape + expression dirs, 36 pose
+    columns), a 512 px texture space with 50 dirs, landmark embedding,
+    texture precompute, a template OBJ with seams and a face mask."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n_v, n_f, n_t = 5023, 9976, 20000
+    faces = rng.integers(0, n_v, (n_f, 3))
+    model = {"v_template": rng.standard_normal((n_v, 3)), "shapedirs": rng.standard_normal((n_v, 3, 400)),
+             "posedirs": rng.standard_normal((n_v, 3, 36)), "J_regressor": rng.uniform(0, 1e-3, (5, n_v)),
+             "weights": rng.uniform(0, 1, (n_v, 5)), "f": faces.astype(np.uint32)}
+    paths = [os.path.join(d, n) for n in ("generic_model.pkl", "FLAME_texture.npz", "landmark_embedding.npy",
+                                          "texture_data_256.npy", "head_template_mesh.obj", "mask.png")]
+    with open(paths[0], "wb") as f:
+        pickle.dump(model, f)
+    np.savez(paths[1], mean=rng.uniform(0, 255, 512 * 512 * 3).astype(np.float32),
+             tex_dir=rng.standard_normal((512 * 512 * 3, 50)).astype(np.float32))
+    np.save(paths[2], {"static_lmk_faces_idx": rng.integers(0, n_f, 51),
+                       "static_lmk_bary_coords": rng.dirichlet(np.ones(3), 51),
+                       "dynamic_lmk_faces_idx": rng.integers(0, n_f, (79, 17)),
+                       "dynamic_lmk_bary_coords": rng.dirichlet(np.ones(3), (79, 17))}, allow_pickle=True)
+    np.save(paths[3], {"x_coords": rng.integers(0, 256, n_t), "y_coords": rng.integers(0, 256, n_t),
+                       "valid_pixel_ids": rng.integers(0, 256 * 256, n_t),
+                       "valid_pixel_3d_faces": rng.integers(0, n_v, (n_t, 3)),
+                       "valid_pixel_b_coords": rng.dirichlet(np.ones(3), n_t)}, allow_pickle=True)
+    n_vt = n_v + 200
+    with open(paths[4], "w") as f:
+        f.writelines(f"v {a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in rng.standard_normal((n_v, 3)))
+        f.writelines(f"vt {a:.6f} {b:.6f}\n" for a, b in rng.uniform(0, 1, (n_vt, 2)))
+        f.writelines("f " + " ".join(f"{a + 1}/{b + 1}" for a, b in zip(fa, fu)) + "\n"
+                     for fa, fu in zip(faces, rng.integers(0, n_vt, (n_f, 3))))
+    mask = np.zeros((256, 256, 3), np.uint8)
+    mask[64:192, 80:176] = 255
+    Image.fromarray(mask).save(paths[5])
+    return tuple(paths)
+
+
+def converters(tmp: str) -> dict:
+    """Phase 21: both converters on fabricated inputs at the real sizes,
+    timed; the FLAME npz loads as resources of FLAME's shapes, and the
+    Inception npz loads back to the state_dict it came from."""
+    import torch
+
+    from gif_tpu_torch.eval.inception import random_fid_params
+    from gif_tpu_torch.flame.resources import load_flame_resources
+    from gif_tpu_torch.tools import convert_flame, convert_inception
+    from gif_tpu_torch.tools.convert_params import load_inception_npz
+
+    t0 = time.perf_counter()
+    *inputs, mask = fabricate_flame_inputs(tmp)
+    fab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_flame.convert(*inputs, os.path.join(tmp, "flame.npz"), face_mask_file=mask)
+    flame_s = time.perf_counter() - t0
+    r = load_flame_resources(os.path.join(tmp, "flame.npz"))
+    assert r.v_template.shape == (5023, 3) and r.shapedirs.shape == (5023, 3, 100) and r.n_faces == 9976
+    assert r.tex_dirs.shape == (256, 256, 3, 50) and r.face_region_mask.shape == (256, 256)
+    sd = random_fid_params(0)
+    torch.save(sd, os.path.join(tmp, "pt_inception.pth"))
+    t0 = time.perf_counter()
+    convert_inception.convert(os.path.join(tmp, "pt_inception.pth"), os.path.join(tmp, "inception.npz"))
+    inc_s = time.perf_counter() - t0
+    back = load_inception_npz(os.path.join(tmp, "inception.npz"))
+    assert sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+    out = {"flame_s": flame_s, "flame_npz_bytes": os.path.getsize(os.path.join(tmp, "flame.npz")),
+           "inception_s": inc_s, "inception_npz_bytes": os.path.getsize(os.path.join(tmp, "inception.npz")),
+           "inception_params": int(sum(v.numel() for v in sd.values()))}
+    log(f"phase converters (host; inputs fabricated in {fab_s:.1f} s): convert_flame on the FLAME 2020 sizes "
+        f"(5023 vertices, 400 dirs, 50 texture dirs at 512 px) {flame_s:.2f} s -> {out['flame_npz_bytes']} bytes; "
+        f"convert_inception ({out['inception_params']} values) {inc_s:.2f} s -> {out['inception_npz_bytes']} bytes, "
+        f"loaded back equal")
+    return out
+
+
+def phase_21(res, counters: dict, smi: str):
+    """Phase 21 in order; returns ({kind: record fields} for the kernels
+    line, {kind: max_abs_err of the recorded launches})."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches, warm, errs = resample_modes(res, counters, smi)
+    with tempfile.TemporaryDirectory(prefix="gif_phase21_") as tmp:
+        bench = bench_lines()
+        measurement_scripts(tmp, bench, smi)
+        eye_regressor_phase(res, smi)
+        det = deterministic_resume(tmp, smi)
+        serve_checkpoint(det["ckpt"], res, smi)
+        converters(tmp)
+    log(f"phase 21: {time.perf_counter() - t_phase:.2f} s in all")
+    out = {}
+    for kind, meta in KERNELS.items():
+        name = meta["name"]
+        out[kind] = {"resample_launches": {m: launches[m][name] for m in RESAMPLE_MODES},
+                     "resample_warmup_launches": {m: warm[m][kind] for m in RESAMPLE_MODES},
+                     "deterministic_launches": det["launches"][name],
+                     "deterministic_resume_launches": det["resume_launches"][name]}
+    out["scatter"]["deterministic_fixed_order"] = {k: det["kernel6"][k] for k in ("fixed_ms", "default_ms",
+                                                                                  "fixed_err", "fixed_equal")}
+    return out, errs
+
+
 def main() -> int:
     import torch
 
@@ -2868,6 +3405,10 @@ def main() -> int:
     # --- phase 20: the generation path (the figure scripts) ---
     gen_launches, errs_gen = generation_path(counters, smi)
 
+    # --- phase 21: resampling modes, bench + measurement scripts, eye regressor,
+    # the deterministic resume, serve --ckpt, the converters ---
+    slice_parts, errs_slice = phase_21(res, counters, smi)
+
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
     # forward kernels carry their served-path numbers under "serve", every
@@ -2894,10 +3435,12 @@ def main() -> int:
         r["loop"] = loop_parts[kind]
         r["data_parallel"] = {"nccl_launches": nccl_parts[kind], **dp_parts[kind]}
         r["generation"] = {"launches": gen_launches[meta["name"]]}
+        r["phase21"] = slice_parts[kind]
         if kind == "scatter":
             r["albedo"] = albedo
         r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),
                                errs_dg.get(kind, 0.0), errs_loop.get(kind, 0.0), errs_gen.get(kind, 0.0),
+                               errs_slice.get(kind, 0.0),
                                albedo["max_abs_err"] if kind == "scatter" else 0.0)
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": records}))
@@ -2910,4 +3453,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--deterministic-child"]:  # phase 21's child process
+        deterministic_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -41,12 +41,28 @@
 // fixed order, so the result equals the plain version (an index_add_ of the
 // same products) up to float32 reassociation, not bit for bit.
 //
+// Fixed-order variant (deterministic mode, passes bit 3): step 2 is
+// replaced by scatter_accumulate_fixed, which adds no float with an atomic.
+// Per window it sorts its listed points by their top-left tap into the
+// cells of a (rows + 1) x (cols + 1) grid (a count, a block prefix sum and
+// a placement: integer atomics, whose results do not depend on their
+// order), sorts each cell's few ids ascending, and then each thread owns
+// output pixels: a pixel receives tap k only from the points of the cell
+// k rows / columns up-left of it, so it merges its four sorted cells and
+// adds their products in point-id order — the order in which the plain
+// version's index_add_ visits them.  Two calls on the same inputs give the
+// same bits.  It reads each point's taps once per tap it has in the window
+// (~4x the default's tap arithmetic) and needs a second (B, windows, P)
+// int32 scratch; a cell holding many points sorts them in one thread
+// (insertion sort), which only a degenerate point set reaches.
+//
 // What bounds it on the H100: memory.  It reads g and the points once from
 // device memory and writes the image once (the point lists, ~5 B a point,
 // stay in L2).  At the run_id-0 shapes — 15 interpolant rows, P = 20000
 // texels, 256 x 256 x 3 — that is 3.6 + 2.4 + 11.8 MB ~ 17.8 MB: ~5.3 us at
 // 3.35 TB/s.  It launches once per G update.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,6 +72,9 @@ constexpr int ACC_THREADS = 512;
 constexpr int MAX_C = 4;                 // channels (scatter_cuda.MAX_CHANNELS)
 constexpr int WINDOW_BYTES = 24 * 1024;  // shared memory per window (scatter_cuda.WINDOW_BYTES)
 constexpr int MAX_WINDOWS = 1024;        // windows per batch row (scatter_cuda.MAX_WINDOWS)
+// Cells of the fixed-order variant's point grid, (rows + 1) x (cols + 1)
+// with rows * cols <= WINDOW_BYTES / 4: at most 2 * (WINDOW_BYTES / 4 + 1).
+constexpr int MAX_CELLS = 2 * (WINDOW_BYTES / 4 + 1);
 
 struct Taps {
   int x0, y0;   // top-left tap
@@ -185,14 +204,143 @@ scatter_accumulate(const float* __restrict__ g, const float2* __restrict__ pts, 
   }
 }
 
+// Exclusive prefix sum of a[0, n) in shared memory by the whole CTA: each
+// thread sums a contiguous chunk, the chunk sums are scanned by warp
+// shuffles, then each thread rewrites its chunk.
+__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int v = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane < n_warps) warp_sums[lane] = v;
+  }
+  __syncthreads();
+  int run = incl - sum + (wid ? warp_sums[wid - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = run;
+    run += c;
+  }
+}
+
+// 2'. accumulate in a fixed order: one CTA per (window, batch row); cells:
+// (B, n_win, P) int32 scratch for the window's points sorted by cell.
+__global__ void __launch_bounds__(ACC_THREADS)
+scatter_accumulate_fixed(const float* __restrict__ g, const float2* __restrict__ pts, const int* __restrict__ counts,
+                         const int* __restrict__ lists, int* __restrict__ cells, float* __restrict__ out, int P,
+                         int H, int W, int C, int win_rows, int win_cols, int n_col, int n_win) {
+  extern __shared__ int s_cell[];  // per cell: its first slot, then (after the placement) its end
+  __shared__ int warp_sums[ACC_THREADS / 32];
+  const int b = blockIdx.y;
+  const int win = blockIdx.x;
+  const int y_lo = (win / n_col) * win_rows;
+  const int x_lo = (win % n_col) * win_cols;
+  const int rows = min(win_rows, H - y_lo);
+  const int cols = min(win_cols, W - x_lo);
+  // Cell (cy, cx) holds the points whose top-left tap is (y_lo - 1 + cy,
+  // x_lo - 1 + cx): every point with a tap in the window has one.
+  const int gc = cols + 1;
+  const int n_cells = (rows + 1) * gc;
+  for (int i = threadIdx.x; i < n_cells; i += blockDim.x) s_cell[i] = 0;
+  __syncthreads();
+
+  const int count = counts[b * n_win + win];
+  const int* list = lists + ((long long)b * n_win + win) * P;
+  int* sorted = cells + ((long long)b * n_win + win) * P;
+  const float2* pb = pts + (long long)b * P;
+  const float* gb = g + (long long)b * P * C;
+  for (int i = threadIdx.x; i < count; i += ACC_THREADS) {
+    Taps t;
+    point_taps(__ldg(pb + __ldg(list + i)), H, W, t);
+    atomicAdd(s_cell + (t.y0 - y_lo + 1) * gc + (t.x0 - x_lo + 1), 1);
+  }
+  __syncthreads();
+  block_exclusive_scan(s_cell, n_cells, warp_sums);
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += ACC_THREADS) {
+    const int p = __ldg(list + i);
+    Taps t;
+    point_taps(__ldg(pb + p), H, W, t);
+    sorted[atomicAdd(s_cell + (t.y0 - y_lo + 1) * gc + (t.x0 - x_lo + 1), 1)] = p;
+  }
+  __syncthreads();
+  for (int cell = threadIdx.x; cell < n_cells; cell += blockDim.x) {
+    const int lo = cell ? s_cell[cell - 1] : 0, hi = s_cell[cell];
+    for (int i = lo + 1; i < hi; ++i) {
+      const int v = sorted[i];
+      int j = i - 1;
+      for (; j >= lo && sorted[j] > v; --j) sorted[j + 1] = sorted[j];
+      sorted[j + 1] = v;
+    }
+  }
+  __syncthreads();
+
+  for (int pix = threadIdx.x; pix < rows * cols; pix += blockDim.x) {
+    const int ry = pix / cols, rx = pix - ry * cols;
+    int pos[4], end[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int cell = (ry - (k >> 1) + 1) * gc + (rx - (k & 1) + 1);
+      pos[k] = cell ? s_cell[cell - 1] : 0;
+      end[k] = s_cell[cell];
+    }
+    float acc[MAX_C] = {0.f, 0.f, 0.f, 0.f};
+    for (;;) {
+      int best = -1, p = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (pos[k] < end[k] && sorted[pos[k]] < p) {
+          p = sorted[pos[k]];
+          best = k;
+        }
+      }
+      if (best < 0) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pos[k] += k == best;
+      Taps t;
+      point_taps(__ldg(pb + p), H, W, t);
+      float wt = t.wt[0];
+#pragma unroll
+      for (int k = 1; k < 4; ++k) wt = k == best ? t.wt[k] : wt;
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c) {
+        if (c < C) acc[c] = __fadd_rn(acc[c], __fmul_rn(wt, __ldg(gb + (long long)p * C + c)));
+      }
+    }
+    float* o = out + (((long long)b * H + y_lo + ry) * W + x_lo + rx) * C;
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) {
+      if (c < C) o[c] = acc[c];
+    }
+  }
+}
+
 }  // namespace
 
-// counts: (B, n_row_windows * n_col_windows) int32 scratch; lists: (B, that,
-// P) int32 scratch.  win_rows x win_cols pixels a window.  passes: bit 0
-// clear the counts, 1 bin, 2 accumulate (7: all).
-extern "C" int gif_scatter_bilinear(const void* g, const void* pts, void* out, void* counts, void* lists, int B,
-                                    int P, int H, int W, int C, int win_rows, int win_cols, int n_row_windows,
-                                    int n_col_windows, int passes, void* stream) {
+// counts: (B, n_row_windows * n_col_windows) int32 scratch; lists and
+// cells: (B, that, P) int32 scratch (cells only read with bit 3).
+// win_rows x win_cols pixels a window.  passes: bit 0 clear the counts, 1
+// bin, 2 accumulate (7: all); bit 3 makes the accumulate step the
+// fixed-order one.
+extern "C" int gif_scatter_bilinear(const void* g, const void* pts, void* out, void* counts, void* lists,
+                                    void* cells, int B, int P, int H, int W, int C, int win_rows, int win_cols,
+                                    int n_row_windows, int n_col_windows, int passes, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_win = n_row_windows * n_col_windows;
@@ -210,7 +358,17 @@ extern "C" int gif_scatter_bilinear(const void* g, const void* pts, void* out, v
         (const float2*)pts, (int*)counts, (int*)lists, P, H, W, win_rows, win_cols, n_col_windows, n_win);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (passes & 4) {
+  if ((passes & 4) && (passes & 8)) {
+    const size_t cell_smem = sizeof(int) * (size_t)(win_rows + 1) * (win_cols + 1);
+    if (cells == nullptr || cell_smem > sizeof(int) * MAX_CELLS) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(scatter_accumulate_fixed, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(sizeof(int) * MAX_CELLS));
+    if (err != cudaSuccess) return (int)err;
+    scatter_accumulate_fixed<<<dim3(n_win, B), ACC_THREADS, cell_smem, st>>>(
+        (const float*)g, (const float2*)pts, (const int*)counts, (const int*)lists, (int*)cells, (float*)out, P, H,
+        W, C, win_rows, win_cols, n_col_windows, n_win);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else if (passes & 4) {
     scatter_accumulate<<<dim3(n_win, B), ACC_THREADS, smem, st>>>(
         (const float*)g, (const float2*)pts, (const int*)counts, (const int*)lists, (float*)out, P, H, W, C,
         win_rows, win_cols, n_col_windows, n_win);

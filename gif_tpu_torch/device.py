@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -39,3 +40,33 @@ def set_tf32_policy() -> None:
     keeps float32 accuracy, as the JAX reference computes it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# cuBLAS workspace settings under which its matmuls are deterministic
+# (CUDA's reproducibility notes; PyTorch checks the same two).
+DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
+
+
+def set_deterministic(enabled: bool) -> None:
+    """Make every run of the same step give the same bits on the card, or
+    stop doing so.  On: cuDNN picks deterministic algorithms and no
+    benchmarked ones, and ``torch.use_deterministic_algorithms(True)``
+    makes ``index_add_`` take its sorted path, raises on any op that has
+    no deterministic form, and sends kernel 6 (the bilinear scatter) to
+    its fixed-order variant.
+
+    cuBLAS reads ``CUBLAS_WORKSPACE_CONFIG`` once, when it creates its
+    handle, so the variable must be set before the process's first
+    matmul; this raises when it is not one of :data:`DETERMINISTIC_CUBLAS`
+    rather than set it too late to matter.  Off restores PyTorch's
+    defaults (cuDNN's ``benchmark`` stays off, as the port never sets
+    it)."""
+    if enabled and os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in DETERMINISTIC_CUBLAS:
+        raise RuntimeError(
+            "deterministic mode needs CUBLAS_WORKSPACE_CONFIG set to one of "
+            f"{DETERMINISTIC_CUBLAS} before the process starts (cuBLAS reads it when it "
+            f"creates its handle); it is {os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}"
+        )
+    torch.backends.cudnn.deterministic = enabled
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(enabled)

@@ -27,21 +27,17 @@ def load_generator_params(
     seed: int = 0,
 ) -> dict:
     """The (EMA) generator's state_dict, on the CPU, from the first source
-    given:
+    given, in ``gif_tpu.eval.sampling.load_generator_params``'s order:
 
-    - ``ckpt``: a checkpoint directory of
-      :class:`gif_tpu_torch.train.checkpoint.CheckpointManager` (a training
-      run's ``checkpoint/``); its latest step's ``g_ema``;
     - ``converted_ckpt``: the trees pickle that the ``convert_checkpoint``
       tools write (``g_ema_params`` + ``buffers``).  Only unpickle files
       this project wrote;
+    - ``ckpt``: a checkpoint directory of
+      :class:`gif_tpu_torch.train.checkpoint.CheckpointManager` (a training
+      run's ``checkpoint/``); its latest step's ``g_ema``;
     - ``converted_params``: a state_dict file written by
       :mod:`gif_tpu_torch.tools.convert_params`;
     - else a fresh initialisation seeded with ``seed`` (smoke runs)."""
-    if ckpt:
-        from gif_tpu_torch.train.checkpoint import CheckpointManager
-
-        return CheckpointManager.read(ckpt)["g_ema"]
     if converted_ckpt:
         import pickle
 
@@ -50,6 +46,10 @@ def load_generator_params(
         with open(converted_ckpt, "rb") as f:
             trees = pickle.load(f)
         return convert_generator_params(trees["g_ema_params"], trees["buffers"])
+    if ckpt:
+        from gif_tpu_torch.train.checkpoint import CheckpointManager
+
+        return CheckpointManager.read(ckpt)["g_ema"]
     if converted_params:
         return torch.load(converted_params, map_location="cpu", weights_only=True)
     return StyledGenerator.from_config(cfg, seed=seed).state_dict()

@@ -6,8 +6,9 @@ not shipped (the reference points at cluster paths, constants.py:27-79, and
 its in-tree copies are git-LFS stubs).  This module defines:
 
 - a single consolidated ``.npz`` schema holding everything the pipeline needs
-  (produced from the official artifacts by the JAX package's
-  ``gif_tpu.tools.convert_flame``; the port reads the same files);
+  (produced from the official artifacts by
+  ``gif_tpu_torch.tools.convert_flame``, which writes the same files as the
+  JAX package's converter);
 - a deterministic *synthetic* resource generator with identical shapes and
   plausible geometry (a triangulated head-sized ellipsoid) so every code
   path — decode, render, texture steal, training — runs and is testable
@@ -317,7 +318,7 @@ def load_flame_resources(path: str | None = None, allow_synthetic: bool = True) 
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"FLAME resources not found at {path!r}; run "
-                "gif_tpu.tools.convert_flame on the official FLAME "
+                "gif_tpu_torch.tools.convert_flame on the official FLAME "
                 "artifacts (docs/REAL_ARTIFACTS.md), or pass "
                 "'synthetic'/'synthetic_small'."
             )
@@ -326,7 +327,7 @@ def load_flame_resources(path: str | None = None, allow_synthetic: bool = True) 
         return FlameResources(**kwargs, is_synthetic=False)
     if not allow_synthetic:
         raise FileNotFoundError(
-            "no FLAME resource path given; run gif_tpu.tools.convert_flame "
+            "no FLAME resource path given; run gif_tpu_torch.tools.convert_flame "
             "on the official FLAME artifacts, or pass allow_synthetic=True."
         )
     return synthetic_flame_resources()

@@ -233,9 +233,13 @@ class ConvLayer(nn.Module):
         x = x.to(self.dtype)
         if self.downsample:
             p = (4 - 2) + (self.kernel_size - 1)
-            # The reference's default ``legacy`` resampling: these pads as
-            # they are, on every map size.
-            x = ops.blur(x, pad=((p + 1) // 2, p // 2))
+            pad0, pad1 = (p + 1) // 2, p // 2
+            # An even-sized blur output where the extra row / column is
+            # never read by the VALID stride-2 conv (``even`` / ``phase``
+            # resampling; ``legacy`` keeps these pads on every map size).
+            py0, py1 = ops.even_extended_pad(x.shape[2], pad0, pad1, 4, self.kernel_size)
+            px0, px1 = ops.even_extended_pad(x.shape[3], pad0, pad1, 4, self.kernel_size)
+            x = ops.blur(x, pad=(py0, py1, px0, px1))
         x = self.conv(x)
         if self.act_bias is not None:
             x = ops.fused_leaky_relu(x, self.act_bias)

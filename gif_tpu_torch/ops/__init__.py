@@ -7,7 +7,7 @@ C++), each twice differentiable through an autograd Function.
 """
 
 from gif_tpu_torch.ops.activations import fused_leaky_relu
-from gif_tpu_torch.ops.conv import equal_conv2d, modulated_conv2d
+from gif_tpu_torch.ops.conv import equal_conv2d, even_extended_pad, modulated_conv2d, resample_mode
 from gif_tpu_torch.ops.linear import equal_linear, pixel_norm
 from gif_tpu_torch.ops.stddev import minibatch_stddev
 from gif_tpu_torch.ops.upfirdn import blur, upfirdn2d, upsample_2x
@@ -16,6 +16,8 @@ __all__ = [
     "fused_leaky_relu",
     "equal_conv2d",
     "modulated_conv2d",
+    "even_extended_pad",
+    "resample_mode",
     "equal_linear",
     "pixel_norm",
     "minibatch_stddev",

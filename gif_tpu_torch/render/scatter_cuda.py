@@ -9,6 +9,11 @@ their taps land in, then one CTA per window accumulates its points' taps
 in shared memory and writes the window once, so the image is written once
 and no global atomic touches it.  Its plain version is
 :func:`gif_tpu_torch.render.sampling_ops.scatter_bilinear_plain`.
+
+Under ``torch.use_deterministic_algorithms(True)`` (the port's
+``device.set_deterministic``) the accumulate step is the source's
+fixed-order variant: each pixel adds its taps in point-id order, the plain
+version's order, with no float atomics, so two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ MAX_CHANNELS = 4
 # points, accumulate the windows.
 STEPS = ("clear", "bin", "accumulate")
 ALL_PASSES = (1 << len(STEPS)) - 1
+# The accumulate step in its fixed-order form (a modifier bit).
+FIXED_ORDER = 1 << len(STEPS)
 
 
 def scatter_launch_geometry(b: int, h: int, w: int, c: int, n_sm: int) -> dict:
@@ -59,16 +66,17 @@ def scatter_bilinear_cuda(g: torch.Tensor, pts: torch.Tensor, h: int, w: int) ->
     """Launch the CUDA scatter (CUDA float32 tensors only): (B, P, C)
     cotangents at (B, P, 2) points -> (B, h, w, C) float32 image, zero
     where no tap lands."""
-    g, pts, bufs = scatter_buffers(g, pts, h, w)
+    g, pts, bufs = scatter_buffers(g, pts, h, w, fixed_order=torch.are_deterministic_algorithms_enabled())
     launch_kernel(g, pts, bufs)
     scatter_bilinear.launches += 1
     return bufs["out"]
 
 
-def scatter_buffers(g, pts, h, w):
+def scatter_buffers(g, pts, h, w, fixed_order: bool = False):
     """Checked, contiguous inputs and the output, window geometry and
     scratch of one call: per (row, window) a point count and a list of up
-    to P point ids, one int32 allocation."""
+    to P point ids, one int32 allocation; with ``fixed_order`` a second
+    list per (row, window) for the fixed-order accumulate step."""
     if g.dtype != torch.float32 or pts.dtype != torch.float32:
         raise ValueError(f"scatter kernel takes float32, got {g.dtype} / {pts.dtype}")
     b, p, c = g.shape
@@ -81,21 +89,27 @@ def scatter_buffers(g, pts, h, w):
     index = g.device.index if g.device.index is not None else torch.cuda.current_device()
     geo = scatter_launch_geometry(b, h, w, c, _sm_count(index))
     n_win = geo["n_row_windows"] * geo["n_col_windows"]
-    counts, lists = torch.empty(b * n_win * (p + 1), dtype=torch.int32, device=g.device).split(
-        [b * n_win, b * n_win * p])
+    n_lists = 2 if fixed_order else 1
+    counts, lists, *cells = torch.empty(b * n_win * (n_lists * p + 1), dtype=torch.int32, device=g.device).split(
+        [b * n_win] + [b * n_win * p] * n_lists)
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)  # every element written
-    return g, pts, {"out": out, "counts": counts, "lists": lists, **geo}
+    return g, pts, {"out": out, "counts": counts, "lists": lists, "cells": cells[0] if cells else None, **geo}
 
 
 def launch_kernel(g, pts, bufs, passes=ALL_PASSES):
     """Queue the steps ``passes`` selects (a bit per entry of ``STEPS``) on
     the current stream; every step reads what the earlier ones left in
-    ``bufs``."""
+    ``bufs``.  Buffers made with ``fixed_order`` run the fixed-order
+    accumulate step."""
     b, p, c = g.shape
     _, h, w, _ = bufs["out"].shape
-    fn = kernels.function("gif_scatter_bilinear", 5, 10)
+    cells = bufs["cells"]
+    if cells is not None:
+        passes |= FIXED_ORDER
+    fn = kernels.function("gif_scatter_bilinear", 6, 10)
     err = fn(
         g.data_ptr(), pts.data_ptr(), bufs["out"].data_ptr(), bufs["counts"].data_ptr(), bufs["lists"].data_ptr(),
+        None if cells is None else cells.data_ptr(),
         b, p, h, w, c, bufs["win_rows"], bufs["win_cols"], bufs["n_row_windows"], bufs["n_col_windows"], passes,
         kernels.stream_ptr(g),
     )

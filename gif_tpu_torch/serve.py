@@ -13,7 +13,12 @@ API (JSON in, image/png out):
 
 Run:
 
-  python -m gif_tpu_torch.serve --run_id 8 --converted_params g.pt --port 8000
+  python -m gif_tpu_torch.serve --run_id 0 --ckpt runs/0/checkpoint --port 8000
+
+The generator comes from the first of ``--converted_ckpt`` (a trees pickle
+of ``tools/convert_checkpoint.py``), ``--ckpt`` (a training run's
+``checkpoint/`` directory), ``--converted_params`` (a state_dict of
+``tools/convert_params.py``), else a seeded random init (``--seed``).
 
 ``--device cpu`` runs the plain PyTorch path; the default is the GPU, and
 without one the server refuses to start.
@@ -187,9 +192,15 @@ def make_handler(server: GifServer):
     return Handler
 
 
-def main(argv=None):
+def build_server(argv=None):
+    """The :class:`GifServer` and the port that ``main`` serves, from the
+    command line ``argv``."""
     p = argparse.ArgumentParser()
-    p.add_argument("--run_id", type=int, default=8)
+    p.add_argument("--run_id", type=int, default=0)
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="a training run's checkpoint/ directory (its latest g_ema)")
+    p.add_argument("--converted_ckpt", type=str, default=None,
+                   help="trees pickle of gif_tpu_torch.tools.convert_checkpoint (wins over --ckpt)")
     p.add_argument("--converted_params", type=str, default=None,
                    help="generator state_dict from gif_tpu_torch.tools.convert_params "
                         "(default: seeded random init)")
@@ -210,10 +221,15 @@ def main(argv=None):
     device = resolve_device(args.device)  # refuse before loading anything
     cfg = get_config(args.run_id, embedding_vocab_size=args.vocab)
     res = load_flame_resources(args.flame_resources)
-    g_state = load_generator_params(cfg, converted_params=args.converted_params, seed=args.seed)
-    server = GifServer(cfg, res, g_state, args.batch_size, args.max_wait_ms, device=device)
-    httpd = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(server))
-    print(f"serving on :{args.port} (batch {args.batch_size}, {server.sampler.device})")
+    g_state = load_generator_params(cfg, ckpt=args.ckpt, converted_ckpt=args.converted_ckpt,
+                                    converted_params=args.converted_params, seed=args.seed)
+    return GifServer(cfg, res, g_state, args.batch_size, args.max_wait_ms, device=device), args.port
+
+
+def main(argv=None):
+    server, port = build_server(argv)
+    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(server))
+    print(f"serving on :{port} (batch {server.batch_size}, {server.sampler.device})")
     try:
         httpd.serve_forever()
     finally:

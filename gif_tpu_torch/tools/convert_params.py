@@ -3,8 +3,10 @@
 Input: flax ``g_params`` / ``g_ema_params`` / ``d_params`` and ``buffers``
 nested dicts as numpy — the trees a ``gif_tpu`` train state holds and the
 pickles ``gif_tpu.tools.convert_checkpoint`` writes — or a whole train
-state (:func:`convert_train_state`); and the FID InceptionV3's flax
-params (:func:`convert_inception_params`, :func:`load_inception_npz`).
+state (:func:`convert_train_state`); the FID InceptionV3's flax
+params (:func:`convert_inception_params`, :func:`load_inception_npz`);
+and the eye-camera regressor's variables
+(:func:`convert_eye_regressor_variables`).
 The module names of :mod:`gif_tpu_torch.models` follow the flax tree, so
 the conversion is a flatten (``a/b/c`` -> ``a.b.c``) plus layout changes:
 
@@ -168,18 +170,31 @@ def convert_inception_params(flax_tree: dict) -> dict:
     return sd
 
 
+def convert_eye_regressor_variables(variables: dict) -> dict:
+    """flax ``CameraRegressor`` variables (``gif_tpu.flame.eye_regressor``:
+    ``params`` with Dense ``kernel`` (in, out) / ``bias`` and BatchNorm
+    ``scale`` / ``bias``; ``batch_stats`` with ``mean`` / ``var``) -> the
+    state_dict of :class:`gif_tpu_torch.flame.eye_regressor.CameraRegressor`
+    (Linear weights (out, in); ``FlaxBatchNorm`` ``weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``)."""
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+    sd = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for name, arr in _flatten(tree):
+            prefix, leaf = name.rsplit(".", 1)
+            arr = np.asarray(arr)
+            sd[f"{prefix}.{names[leaf]}"] = _tensor(arr.T if leaf == "kernel" else arr)
+    return sd
+
+
 def load_inception_npz(path: str) -> dict:
-    """The ``.npz`` that ``gif_tpu.tools.convert_inception`` writes (flax
-    params, keys joined by ``/``) -> an ``InceptionV3FID`` state_dict."""
-    tree: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    return convert_inception_params(tree)
+    """The ``.npz`` that :mod:`gif_tpu_torch.tools.convert_inception` (and
+    ``gif_tpu.tools.convert_inception``) writes (flax params, keys joined by
+    ``/``) -> an ``InceptionV3FID`` state_dict."""
+    from gif_tpu_torch.tools.convert_inception import load_converted_params
+
+    return convert_inception_params(load_converted_params(path))
 
 
 def main(argv=None):

@@ -20,7 +20,10 @@ localhost; under torchrun ``--multihost`` joins from its environment;
 ``--coordinator host:port --num_processes N --process_id i`` joins
 explicitly.  ``--backend`` is ``nccl`` unless the caller asks for ``gloo``
 (CPU ranks, or ranks sharing a card).  ``--converted_ckpt`` warm-starts
-from converted reference weights (``tools/convert_checkpoint``).  Rank 0
+from converted reference weights (``tools/convert_checkpoint``).
+``--deterministic`` makes the steps bit-exact on the card, so a resume
+replays the uninterrupted run (off by default: it costs step time; it
+needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the process starts).  Rank 0
 writes ``generator_run{id}.txt`` / ``discriminator_run{id}.txt`` (and
 their ``.html`` twins), the architecture reports, into ``--out_dir``.
 """
@@ -43,7 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--total_iters", type=int, default=3_000_000)
     p.add_argument("--inception_weights", type=str, default=None,
-                   help="npz of converted InceptionV3 FID weights, or 'random' for a random-init "
+                   help="npz of InceptionV3 FID weights (gif_tpu_torch.tools.convert_inception "
+                        "--torch_weights pt_inception.pth), or 'random' for a random-init "
                         "net (relative FID; exercises the eval path without licensed weights)")
     p.add_argument("--fid_every", type=int, default=None, help="override the preset FID cadence")
     p.add_argument("--checkpoint_every", type=int, default=None,
@@ -76,6 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                    help="torch.distributed backend (nccl: one card per rank)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="bit-exact replay on the card (a resumed run repeats the uninterrupted one); "
+                        "needs CUBLAS_WORKSPACE_CONFIG=:4096:8 (or :16:8) in the environment")
     return p.parse_args(argv)
 
 
@@ -201,6 +208,7 @@ def run(args, group=None):
         log_every=args.log_every,
         device=device,
         group=group,
+        deterministic=args.deterministic,
     )
 
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from gif_tpu_torch.data.pipeline import FlameDataset, data_iterator
-from gif_tpu_torch.device import resolve_device
+from gif_tpu_torch.device import resolve_device, set_deterministic
 from gif_tpu_torch.eval.sampling import FlameSampler
 from gif_tpu_torch.parallel.collectives import allgather_rows
 from gif_tpu_torch.parallel.mesh import process_count, process_index
@@ -100,6 +100,7 @@ def train(
     device=None,
     max_tris_per_tile: Optional[int] = None,
     group=None,
+    deterministic: bool = False,
 ):
     """Run training to ``total_iters`` steps; returns the train state.
 
@@ -117,7 +118,13 @@ def train(
 
     With a process ``group`` every rank calls this with the same arguments
     (``fid_computer`` given on every rank or on none; ``device`` its own);
-    ``cfg.batch_size`` is the global batch."""
+    ``cfg.batch_size`` is the global batch.
+
+    ``deterministic`` turns :func:`gif_tpu_torch.device.set_deterministic`
+    on for the steps (and off again after them), so that a run and its
+    resume from a checkpoint give the same losses bit for bit on the card,
+    as the reference's do on the TPU.  Off by default: it costs step
+    time."""
     if cfg.apply_texture_space_interpolation_loss and (
         getattr(dataset, "horizontal_flip", False) or getattr(dataset, "random_crop", False)
     ):
@@ -206,6 +213,8 @@ def train(
         run_eval(-1)
 
     it = data_iterator(dataset, local_bs, seed=(seed, rank), start_step=start)
+    if deterministic:
+        set_deterministic(True)
     try:
         for i in range(start, total_iters):
             batch = next(it)
@@ -234,5 +243,7 @@ def train(
                 t_last = time.perf_counter()
     finally:
         it.close()
+        if deterministic:
+            set_deterministic(False)
     ckpt.save(state)
     return state

@@ -291,3 +291,59 @@ def test_ctypes_declarations_match_the_c_entry_points():
     assert declared and set(declared) == set(entries)
     for name, sig in declared.items():
         assert sig == entries[name], (name, sig, entries[name])
+
+
+def _scatter_fixed_order(g, pts, h, w, geo):
+    """csrc/scatter.cu's fixed-order accumulate step in numpy: per window,
+    its listed points go to the cell of their top-left tap ((rows + 1) x
+    (cols + 1) cells from one up-left of the window), each cell sorted by
+    point id; each pixel merges the four cells it receives taps from and
+    adds the products in point-id order, in float32."""
+    b, p, c = g.shape
+    rows, cols, n_col = geo["win_rows"], geo["win_cols"], geo["n_col_windows"]
+    gx = (pts[..., 0] + 1.0) * (w * 0.5) - 0.5
+    gy = (pts[..., 1] + 1.0) * (h * 0.5) - 0.5
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    dx, dy = (gx - x0).numpy(), (gy - y0).numpy()
+    x0, y0 = x0.long().numpy(), y0.long().numpy()
+    wts = [(1 - dy) * (1 - dx), (1 - dy) * dx, dy * (1 - dx), dy * dx]  # float32, the kernel's products
+    gn = g.numpy()
+    out = np.full((b, h, w, c), np.nan, np.float32)
+    for bi in range(b):
+        for i in range(geo["n_row_windows"] * n_col):
+            y_lo, x_lo = i // n_col * rows, i % n_col * cols
+            r, q = min(rows, h - y_lo), min(cols, w - x_lo)
+            listed = [pi for pi in range(p)
+                      if any(y_lo <= y0[bi, pi] + (k >> 1) < y_lo + r and x_lo <= x0[bi, pi] + (k & 1) < x_lo + q
+                             and 0 <= y0[bi, pi] + (k >> 1) < h and 0 <= x0[bi, pi] + (k & 1) < w
+                             for k in range(4))]
+            cells = {}
+            for pi in listed:
+                cells.setdefault((y0[bi, pi] - y_lo + 1, x0[bi, pi] - x_lo + 1), []).append(pi)
+            for ry in range(r):
+                for rx in range(q):
+                    taps = sorted((pi, k) for k in range(4)
+                                  for pi in cells.get((ry - (k >> 1) + 1, rx - (k & 1) + 1), []))
+                    acc = np.zeros(c, np.float32)
+                    for pi, k in taps:
+                        acc = acc + wts[k][bi, pi] * gn[bi, pi]
+                    out[bi, y_lo + ry, x_lo + rx] = acc
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("b,p,h,w,c,n_sm,clustered", [(2, 300, 12, 10, 3, 132, False), (1, 400, 9, 7, 2, 3, True),
+                                                      (2, 200, 5, 40, 1, 4, False)])
+def test_scatter_fixed_order_equals_the_plain_scatter_bit_for_bit(b, p, h, w, c, n_sm, clustered):
+    """The fixed-order step (deterministic mode) adds each pixel's taps in
+    the plain version's index_add_ order, so it is the plain scatter bit for
+    bit; points outside the image add nothing."""
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-1.2, 1.2, (b, p, 2)).astype(np.float32)
+    if clustered:  # many points a cell
+        pts[:, : p // 2] = rng.uniform(-0.1, 0.1, (b, p // 2, 2)).astype(np.float32)
+    pts[:, -4:] = np.array([[-1, -1], [1, 1], [-1, 1], [1 - 1e-7, -1]], np.float32)
+    pts, g = torch.from_numpy(pts), torch.from_numpy(rng.standard_normal((b, p, c)).astype(np.float32))
+    geo = scatter_launch_geometry(b, h, w, c, n_sm)
+    got = _scatter_fixed_order(g, pts, h, w, geo)
+    want = sampling_ops.scatter_bilinear_plain(g, pts, h, w)
+    assert torch.equal(got, want)

@@ -484,3 +484,46 @@ def test_constant_albedo_render_on_the_card_equals_the_plain_render(cuda_device,
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert (got.normal - want.normal).abs().max().item() <= 1e-5
     assert bool(want.mask.any())
+
+
+# The `even` resampling mode's kernel-4 calls (ops/conv.py, models/layers.py):
+# the upsample blur's (1, 0) on the even (2H + 2)-sized transposed-conv
+# output, the down-blurs' (2, 3) before a 3x3 and (1, 2) before the 1x1
+# skip; and their VJP pads 3 - p.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,pads,gain", [((4, 64, 66, 66), (1, 0, 1, 0), 4.0),
+                                             ((4, 64, 64, 64), (2, 3, 2, 3), 1.0),
+                                             ((4, 64, 32, 32), (1, 2, 1, 2), 1.0)])
+def test_blur_kernel_at_the_even_mode_pads(cuda_device, dtype, shape, pads, gain):
+    x = torch.randn(shape, device=cuda_device).to(dtype).requires_grad_(True)
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), gain)
+    got = blur_cuda.blur4(x, taps, pads)
+    want = blur_cuda.blur4_plain(x.detach(), taps[::-1], pads)
+    assert got.shape[2] % 2 == 0 and torch.equal(got, want)
+    g = torch.randn_like(got)
+    (dx,) = torch.autograd.grad(got, x, g)
+    want_dx = blur_cuda.blur4_plain(g, taps, tuple(3 - p for p in pads))
+    torch.cuda.synchronize()
+    assert torch.equal(dx, want_dx)
+
+
+@pytest.mark.parametrize("layout", ["mixed", "clustered", "spread"])
+def test_scatter_kernel_is_bit_equal_across_calls_under_determinism(cuda_device, layout):
+    """The fixed-order accumulate step (``torch.use_deterministic_algorithms``):
+    two calls on the same inputs give the same bits, and stay within the
+    kernel's bar of the plain version."""
+    rng = np.random.default_rng(6)
+    b, p, h, w, c = 15, 20000, 256, 256, 3
+    pts = torch.from_numpy(_scatter_points(rng, b, p, h, w, layout)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((b, p, c)).astype(np.float32)).to(cuda_device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = scatter_cuda.scatter_bilinear(g, pts, h, w)
+        second = scatter_cuda.scatter_bilinear(g, pts, h, w)
+        want = sampling_ops.scatter_bilinear_plain(g, pts, h, w)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err = (first - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
