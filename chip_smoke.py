@@ -157,6 +157,19 @@ Phases (each raises on failure; nothing is caught):
     run's checkpoint against a ``FlameSampler`` from it; and both
     converters on fabricated inputs at the real sizes, timed.  Phase 16's
     resume check stays as it was for the default, non-deterministic mode.
+22. the study and analysis scripts (:func:`study_scripts`): four of them
+    at ``--tiny`` on the card and the CPU under phase 20's bars, then at
+    run_id 0's full width with counted launches — ``mturk_stimuli`` in
+    both modes, ``voca_animation`` frames and grid,
+    ``compute_fid_for_models`` (512 samples, sigmas 0 and 1: sigma 0 reads
+    0 within the host ``sqrtm``'s rounding, below sigma 1),
+    ``show_training_data``; a 10-step run_id-8 run of the training CLI in
+    a counted child process and ``recon_trend`` on its checkpoints;
+    ``raster_sensitivity`` (40 deterministic steps, each arm a counted
+    child: kernel 1 only in the ``cuda`` arm, kernels 1-5 and 4's VJP
+    there, the first step held launch by launch; the ratio at most 1.5)
+    and one batch rasterized bit-equal under both backends; the host-only scripts on
+    what these wrote.  Prints each script's host seconds and images/s.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -182,7 +195,8 @@ split; ``data_parallel``: phase 18's steps' and each phase-19 rank's
 per run; ``generation``: phase 20's six full-width scripts';
 ``phase21``: the counted launches of each resampling mode's 3 steps and
 of its recorded warm-up step, the deterministic run's and its resume's
-(kernel 6 also its fixed-order timing); kernel 6's
+(kernel 6 also its fixed-order timing); ``scripts22``: phase 22's
+launches in all and by script (training children by arm); kernel 6's
 ``albedo``: its numbers at the albedo
 lookup's gradient), the card's name and power limit as nvidia-smi reports
 them, and the result line.
@@ -2406,24 +2420,36 @@ class ScriptProbe:
     conditions), the start time of each batch and the end of each call,
     and the landmark projections of ``landmark_overlay``.  With
     ``record_first`` the first batch of the first sampler runs under a
-    :class:`LaunchRecorder` (every launch held to its plain version)."""
+    :class:`LaunchRecorder` (every launch held to its plain version).
 
-    def __init__(self, capacity=None, record_first: bool = False):
-        self.capacity, self.record_first = capacity, record_first
+    It also sees what the study scripts render outside a sampler: the
+    display renders of ``renderer.render_tex_and_normal`` (given
+    ``capacity`` too) and the condition maps of
+    ``step.render_condition_maps``, counting their overflowed samples, and
+    it keeps the statistics every Fréchet distance gets (with
+    ``skip_sqrtm`` it returns NaN instead of taking the host square
+    root)."""
+
+    def __init__(self, capacity=None, record_first: bool = False, skip_sqrtm: bool = False):
+        self.capacity, self.record_first, self.skip_sqrtm = capacity, record_first, skip_sqrtm
         self.samplers, self.samples, self.batch_starts, self.sample_ends = [], [], [], []
-        self.landmarks, self.recorders = [], []
+        self.landmarks, self.recorders, self.stats, self.conds = [], [], [], []
+        self.display_overflows, self.cond_overflows = 0, 0
 
     def __enter__(self):
         import torch
 
-        from gif_tpu_torch.eval import sampling
+        from gif_tpu_torch.eval import fid, sampling
+        from gif_tpu_torch.render import renderer
         from gif_tpu_torch.scripts import landmark_overlay
+        from gif_tpu_torch.train import step
 
         cls = sampling.FlameSampler
         self.saved = [(cls, n, cls.__dict__[n]) for n in ("__init__", "sample", "_run")]
-        self.saved.append((landmark_overlay, "project_landmarks", landmark_overlay.project_landmarks))
-        init, sample, run = (f for _, _, f in self.saved[:3])
-        project = landmark_overlay.project_landmarks
+        for owner, name in ((landmark_overlay, "project_landmarks"), (renderer, "render_tex_and_normal"),
+                            (step, "render_condition_maps"), (fid, "frechet_distance")):
+            self.saved.append((owner, name, getattr(owner, name)))
+        init, sample, run, project, render, conditions, frechet = (f for _, _, f in self.saved)
         probe = self
 
         def init_(sampler, *a, **kw):
@@ -2449,12 +2475,34 @@ class ScriptProbe:
             return run(sampler, flame, indices)
 
         def project_(*a, **kw):
+            # The helper defaults to the card: callers name the device.
+            assert len(a) == 4 or "device" in kw, "project_landmarks called without a device"
             pts = project(*a, **kw)
             probe.landmarks.append(pts)
             return pts
 
+        def render_(*a, **kw):
+            if probe.capacity is not None:
+                kw["max_tris_per_tile"] = probe.capacity
+            maps = render(*a, **kw)
+            probe.display_overflows += int(maps.overflow.sum())
+            return maps
+
+        def conditions_(res, flame, cfg, max_tris_per_tile=None, return_overflow=False):
+            cond, overflow = conditions(res, flame, cfg, max_tris_per_tile, return_overflow=True)
+            probe.cond_overflows += int(overflow.sum())
+            probe.conds.append(cond.float().cpu().numpy())
+            return (cond, overflow) if return_overflow else cond
+
+        def frechet_(*a):
+            probe.stats.append([np.asarray(x, np.float64) for x in a])
+            return float("nan") if probe.skip_sqrtm else frechet(*a)
+
         cls.__init__, cls.sample, cls._run = init_, sample_, run_
         landmark_overlay.project_landmarks = project_
+        renderer.render_tex_and_normal = render_
+        step.render_condition_maps = conditions_
+        fid.frechet_distance = frechet_
         return self
 
     def __exit__(self, *exc):
@@ -2463,7 +2511,7 @@ class ScriptProbe:
 
     @property
     def render_overflows(self) -> int:
-        return sum(s.render_overflows for s in self.samplers)
+        return sum(s.render_overflows for s in self.samplers) + self.display_overflows + self.cond_overflows
 
 
 def write_trees(cfg, path: str, device=None) -> None:
@@ -2486,15 +2534,19 @@ def run_script(name: str, args: list) -> None:
     importlib.import_module(f"gif_tpu_torch.scripts.{name}").main(args)
 
 
-def check_generation_against_cpu_plain(tmp: str) -> None:
-    """Phase 20, first part: every figure script once at ``--tiny`` (one
-    batch each, the FLAME-sized synthetic mesh, run_id 0's tiny G at f32)
-    on the card and on the CPU, from one trees pickle: the conditions of
-    every ``FlameSampler.sample`` call within one 8-bit step on < 0.5% of
-    values, the card's G fed the CPU's conditions within 1e-3 of the CPU
-    images, the landmark projections within 1e-3 px, the stolen textures
-    within 1e-2 on all but 0.1% of texels (a visibility flip moves a texel
-    by the whole value)."""
+def check_generation_against_cpu_plain(tmp: str, names=GEN_SCRIPTS, tiny_args=GEN_TINY_ARGS) -> None:
+    """Phase 20's first part (and phase 22's, for the study scripts): every
+    script of ``names`` once at ``--tiny`` (one batch each, the FLAME-sized
+    synthetic mesh, run_id 0's tiny G at f32) on the card and on the CPU,
+    from one trees pickle: the conditions of every ``FlameSampler.sample``
+    call within one 8-bit step on < 0.5% of values, the card's G fed the
+    CPU's conditions within 1e-3 of the CPU images, the landmark
+    projections within 1e-3 px, the stolen textures within 1e-2 on all but
+    0.1% of texels (a visibility flip moves a texel by the whole value);
+    the statistics ``compute_fid_for_models`` hands the Fréchet distance
+    within 1e-3 of their largest magnitude (its host square root is
+    skipped: the same scipy call on either device), and
+    ``show_training_data``'s grids within one level on < 0.5% of values."""
     import torch
 
     from gif_tpu_torch.train.config import TINY_OVERRIDES, get_config
@@ -2502,17 +2554,18 @@ def check_generation_against_cpu_plain(tmp: str) -> None:
     trees = os.path.join(tmp, "tiny_trees.pkl")
     write_trees(get_config(0, **TINY_OVERRIDES, embedding_vocab_size=16), trees, device="cpu")
     step = 2.0 / 255.0
-    for name in GEN_SCRIPTS:
+    for name in names:
         runs = {}
         for d in ("cuda", "cpu"):
             out = os.path.join(tmp, f"tiny_{name}_{d}")
-            extra = ["--out", out + ".gif"] if name == "generate_gif" else ["--out_dir", out]
-            with ScriptProbe() as probe:
-                run_script(name, ["--tiny", "--flame_resources", "synthetic", "--vocab", "16", "--converted_ckpt",
-                                  trees, "--device", d, *GEN_TINY_ARGS[name], *extra])
+            extra = {"generate_gif": ["--out", out + ".gif"], "compute_fid_for_models": ["--out", out + ".json"]}
+            model = [] if name == "show_training_data" else ["--vocab", "16", "--converted_ckpt", trees]
+            with ScriptProbe(skip_sqrtm=True) as probe:
+                run_script(name, ["--tiny", "--flame_resources", "synthetic", *model, "--device", d, *tiny_args[name],
+                                  *extra.get(name, ["--out_dir", out])])
             runs[d] = probe
         flips, img_err = 0.0, 0.0
-        assert len(runs["cuda"].samples) == len(runs["cpu"].samples) > 0, name
+        assert len(runs["cuda"].samples) == len(runs["cpu"].samples), name
         for (sampler, idx, g_img, g_cond), (_, _, c_img, c_cond) in zip(runs["cuda"].samples, runs["cpu"].samples):
             diff = np.abs(g_cond - c_cond)
             assert diff.max() <= step * 1.001, (name, diff.max())
@@ -2524,7 +2577,7 @@ def check_generation_against_cpu_plain(tmp: str) -> None:
             assert np.isfinite(g_img).all()
         lmk_err = max([float(np.abs(a - b).max()) for a, b in zip(runs["cuda"].landmarks, runs["cpu"].landmarks)]
                       or [0.0])
-        tex = ""
+        more = ""
         if name == "teaser":
             from PIL import Image
 
@@ -2532,12 +2585,40 @@ def check_generation_against_cpu_plain(tmp: str) -> None:
                                                              f"texture_{i}.png"))) for i in range(15)])
                  for d in ("cuda", "cpu")]
             off = float((np.abs(t[0].astype(int) - t[1].astype(int)) > 2.55).any(-1).mean())
-            tex = f", stolen textures: texels off by > 1e-2 {off:.5f} (tol 0.001)"
+            more = f", stolen textures: texels off by > 1e-2 {off:.5f} (tol 0.001)"
             assert off <= 1e-3, off
+        if name == "compute_fid_for_models":
+            (got,), (want,) = runs["cuda"].stats, runs["cpu"].stats
+            scale = max(float(np.abs(w).max()) for w in want)
+            stat_err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            more = f", Fréchet statistics max |diff| {stat_err:.3g} (tol 1e-3 x {scale:.3g})"
+            assert stat_err <= 1e-3 * scale, (stat_err, scale)
+        if name == "show_training_data":
+            # The conditions each device rendered, then the grids written
+            # (a value on a level's edge may truncate to either side).
+            assert len(runs["cuda"].conds) == len(runs["cpu"].conds) > 0
+            for g_cond, c_cond in zip(runs["cuda"].conds, runs["cpu"].conds):
+                diff = np.abs(g_cond - c_cond)
+                assert diff.max() <= step * 1.001, (name, diff.max())
+                flips = max(flips, float((diff > step * 0.5).mean()))
+            levels = _png_diff(os.path.join(tmp, f"tiny_{name}_cuda", "batch_0.png"),
+                               os.path.join(tmp, f"tiny_{name}_cpu", "batch_0.png"))
+            more = f", grid PNG max level diff {levels.max()} (tol 1)"
+            assert levels.max() <= 1, levels.max()
+        else:
+            assert runs["cuda"].samples or runs["cuda"].stats, name
         log(f"cuda vs cpu plain ({name} --tiny, FLAME-sized mesh, 32 px): {len(runs['cuda'].samples)} sample "
             f"call(s), cond one-step flips {flips:.4f} (tol 0.005), card G on the CPU conditions max_abs_err "
-            f"{img_err:.3g} (tol 1e-3), landmarks max |diff| {lmk_err:.3g} px (tol 1e-3){tex}")
+            f"{img_err:.3g} (tol 1e-3), landmarks max |diff| {lmk_err:.3g} px (tol 1e-3){more}")
         assert flips < 0.005 and img_err < 1e-3 and lmk_err < 1e-3, name
+
+
+def _png_diff(a: str, b: str) -> np.ndarray:
+    """|a - b| of two PNGs' pixel levels."""
+    from PIL import Image
+
+    with Image.open(a) as x, Image.open(b) as y:
+        return np.abs(np.asarray(x).astype(int) - np.asarray(y).astype(int))
 
 
 def generation_path(counters: dict, smi: str):
@@ -3213,6 +3294,348 @@ def phase_21(res, counters: dict, smi: str):
     return out, errs
 
 
+# --- Phase 22: the study and analysis scripts --------------------------------
+STUDY_TINY_ARGS = {  # one batch each, card against CPU
+    "mturk_stimuli": ["association", "--n", "4"],
+    "voca_animation": ["frames", "--run_id", "0", "--identities", "1", "--n_frames", "4"],
+    "compute_fid_for_models": ["--n_samples", "16", "--sigmas", "1.0"],
+    "show_training_data": ["--batch", "4", "--n_batches", "1"],
+}
+# The recon_trend run (run_id 8 through the CLI: a render dataset,
+# checkpoints, the random-weight FID once, as its untrained baseline) and
+# raster_sensitivity's arms.
+RECON_STEPS, RECON_DATASET, RECON_CKPT_EVERY = 10, 128, 5
+RSENS_ITERS, RSENS_LOG_EVERY, RSENS_MAX_RATIO = 40, 2, 1.5  # the bar tests/test_aux.py holds the TPU artifact to
+
+
+def counted_train_child(counts_path: str, argv: list) -> None:
+    """``python -m gif_tpu_torch.train <argv>`` in this process (phase 22's
+    children): every counter 0 just before, read just after, the run
+    under a :class:`LoopProbe` whose first step (and first FID batch) is
+    held launch by launch to the plain versions unless the rasterizer is
+    forced to its plain version (``GIF_TPU_TORCH_RASTER=plain``: kernel 1
+    never launches there, and a round starts at a raster launch).  Writes
+    the launches, the steps' metrics and the recorded errors to
+    ``counts_path``."""
+    import torch
+
+    from gif_tpu_torch import kernels
+    from gif_tpu_torch.train import cli
+
+    kernels.build()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with LoopProbe(counters, record=os.environ.get("GIF_TPU_TORCH_RASTER") != "plain") as probe:
+        cli.main(argv)
+        torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "launches": {k: fn.launches for k, fn in counters.items()},
+           "step_launches": probe.step_launches, "recorded": probe.recorded, "checked": probe.checked,
+           "errs": probe.errs, "metrics": [(i, {k: v.item() for k, v in m.items()}) for i, m in probe.metrics],
+           "fids": probe.fids}
+    with open(counts_path, "w") as f:
+        json.dump(out, f)
+
+
+def counted_train_command(counts_path: str, argv: list) -> list:
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--counted-train", counts_path, *argv]
+
+
+def check_train_child(c: dict, what: str, steps: int, kinds) -> None:
+    """A counted child's run: every step's metrics finite with no render
+    overflow, the kernels ``kinds`` launched in its steps, the recorded
+    first step's launches held to their plain versions."""
+    assert len(c["metrics"]) == steps, (what, len(c["metrics"]))
+    for i, m in c["metrics"]:
+        assert all(np.isfinite(v) for v in m.values()) and m["render_overflow"] == 0.0, (what, i, m)
+    assert all(c["step_launches"][KERNELS[k]["name"]] > 0 for k in kinds), (what, c["step_launches"])
+    if c["recorded"]:
+        assert all(c["recorded"]["step"][k] > 0 for k in kinds), (what, c["recorded"])
+
+
+def rasterizer_backends_bit_equal(res) -> tuple:
+    """One training batch's raster (256 px, capacity = face count) through
+    ``rasterize_with_attrs`` under backend ``cuda`` and ``plain`` on the
+    card: depth, face ids, barycentrics, overflow and the interpolated
+    attributes bit-equal; then ``render_tex_and_normal`` under both: the
+    depth and mask equal (the shaded maps carry the vertex normals'
+    ``index_add_`` order).  Returns (kernel-1 launches, batch)."""
+    import torch
+
+    from gif_tpu_torch.data.pipeline import sample_flame_params
+    from gif_tpu_torch.flame.camera import batch_orth_proj
+    from gif_tpu_torch.flame.decoder import flame_decode
+    from gif_tpu_torch.flame.mesh import face_vertices, vertex_normals
+    from gif_tpu_torch.render.raster import to_pixel_space
+    from gif_tpu_torch.render.raster_cuda import rasterize_with_attrs
+    from gif_tpu_torch.render.renderer import render_tex_and_normal
+
+    f = torch.as_tensor(sample_flame_params(np.random.default_rng(22), TRAIN_BATCH), device="cuda")
+    b, dev = len(f), f.device
+    with torch.inference_mode():
+        trans = batch_orth_proj(flame_decode(res, f[:, :100], f[:, 100:150], f[:, 150:156]), f[:, 156:159])
+        trans = torch.cat([trans[:, :, :1], -trans[:, :, 1:]], dim=2)
+        faces = res.tensor("faces", dev, torch.long)
+        fv = face_vertices(to_pixel_space(trans, 256, 256), faces)
+        attrs = torch.cat([face_vertices(vertex_normals(trans, faces), faces),
+                           res.tensor("uv_coords", dev, torch.float32)[faces].expand(b, -1, -1, -1)], dim=-1)
+        before = rasterize_with_attrs.launches
+        outs = {bk: rasterize_with_attrs(fv, attrs, 256, 256, 32, res.n_faces, bk) for bk in ("cuda", "plain")}
+        torch.cuda.synchronize()
+        launched = rasterize_with_attrs.launches - before
+        (rc, ic), (rp, ip) = outs["cuda"], outs["plain"]
+        unequal = [n for n, x, y in zip(("depth", "tri_id", "bary", "tile_overflow", "attributes"), (*rc, ic), (*rp, ip))
+                   if not torch.equal(x, y)]
+        codes = (f[:, 0:100], f[:, 100:150], f[:, 150:156], f[:, 159:209], f[:, 209:236], f[:, 156:159])
+        maps = {bk: render_tex_and_normal(res, *codes, max_tris_per_tile=res.n_faces, raster_backend=bk)
+                for bk in ("cuda", "plain")}
+    assert launched == 1 and not unequal, (launched, unequal)
+    assert torch.equal(maps["cuda"].depth, maps["plain"].depth) and torch.equal(maps["cuda"].mask, maps["plain"].mask)
+    assert not bool(rc.tile_overflow.any()) and bool(maps["cuda"].mask.any())
+    return launched, b
+
+
+def _images_live(paths) -> None:
+    """Each PNG exists, and its pixels are not all one value."""
+    from PIL import Image
+
+    for p in paths:
+        with Image.open(p) as im:
+            a = np.asarray(im)
+        assert a.size and int(a.max()) > int(a.min()), p
+
+
+def study_scripts(counters: dict, smi: str):
+    """Phase 22: the study and analysis scripts.  At ``--tiny`` on the card
+    and the CPU (:func:`check_generation_against_cpu_plain`); then at run_id
+    0's full width (256 px, 512 channels, 69158 identities, bf16 convs) on
+    the FLAME-sized synthetic mesh from a trees pickle of a seeded port
+    train state, raster capacity = face count, every counter 0 just before
+    each script and read just after: ``mturk_stimuli`` in both modes (16
+    stimuli; the first batch held launch by launch to the plain versions),
+    ``voca_animation`` frames (2 identities x 60 frames) and grid,
+    ``compute_fid_for_models`` (512 samples, sigmas 0 and 1, random
+    Inception), ``show_training_data`` (2 batches of 8); a 10-step run_id-8
+    run of ``python -m gif_tpu_torch.train`` (128 synthetic renders,
+    checkpoints every 5, the random FID once) in a counted child and
+    ``recon_trend`` on it; ``raster_sensitivity`` (40 deterministic steps,
+    a row every 2, ``--max_ratio 1.5``) with each arm in a counted child; one batch's
+    raster bit-equal under both backends; ``make_image_grid``,
+    ``plot_fid`` and ``mturk_results csv`` on what these wrote.  Returns
+    ({script: launches}, the recorded launches' largest errors by kernel,
+    the raster_sensitivity result)."""
+    import tempfile
+
+    import torch
+
+    from gif_tpu_torch.flame.resources import synthetic_flame_resources
+    from gif_tpu_torch.scripts import raster_sensitivity
+    from gif_tpu_torch.train.config import get_config
+
+    t_phase = time.perf_counter()
+    launches, secs, probes, n_images, errs = {}, {}, {}, {}, {}
+
+    def take_errs(stats: dict) -> None:
+        """A recorder's stats ({kind: {} or {"max_abs_err": e}}) or a
+        child's errors ({kind: e})."""
+        for kind, st in stats.items():
+            if st != {}:
+                errs[kind] = max(errs.get(kind, 0.0), st["max_abs_err"] if isinstance(st, dict) else st)
+
+    def counted(key: str, args: list, **probe_kw):
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ScriptProbe(**probe_kw) as probe:
+            run_script(key.split(":")[0], args)
+            torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        launches[key] = {k: fn.launches for k, fn in counters.items()}
+        probes[key] = probe
+        for rec in probe.recorders:
+            take_errs(rec.stats)
+        return probe
+
+    def release() -> None:
+        # The training children need the card's memory that this process's
+        # caching allocator holds.
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def child(key: str, argv: list) -> dict:
+        release()
+        path = os.path.join(tmp, f"{key}.counts.json")
+        t0 = time.perf_counter()
+        p = subprocess.run(counted_train_command(path, argv), cwd=ROOT, capture_output=True, text=True)
+        assert p.returncode == 0, f"{key} exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}"
+        with open(path) as f:
+            c = json.load(f)
+        secs[key], launches[key] = time.perf_counter() - t0, c["launches"]
+        take_errs(c["errs"])
+        return c
+
+    with tempfile.TemporaryDirectory(prefix="gif_study_") as tmp:
+        check_generation_against_cpu_plain(tmp, STUDY_TINY_ARGS, STUDY_TINY_ARGS)
+        t_tiny = time.perf_counter() - t_phase
+
+        t0 = time.perf_counter()
+        cfg = get_config(0)
+        res = synthetic_flame_resources()
+        trees = os.path.join(tmp, "trees.pkl")
+        write_trees(cfg, trees)
+        log(f"phase study setup: run_id 0, {cfg.max_size} px, max_channels {cfg.max_channels}, vocab "
+            f"{cfg.embedding_vocab_size}, {cfg.compute_dtype}, trees pickle {os.path.getsize(trees)} bytes: "
+            f"{time.perf_counter() - t0:.2f} s")
+        common = ["--run_id", "0", "--flame_resources", "synthetic", "--converted_ckpt", trees, "--device", "cuda"]
+        cap = dict(capacity=res.n_faces)
+        first = counted("mturk_stimuli:association", ["association", *common, "--n", "16", "--out_dir",
+                                                      os.path.join(tmp, "study")], record_first=True, **cap)
+        counted("mturk_stimuli:comparison", ["comparison", *common, "--n", "16", "--converted_ckpt_b", trees,
+                                             "--out_dir", os.path.join(tmp, "study_ab")], **cap)
+        voca = os.path.join(tmp, "voca")
+        counted("voca_animation:frames", ["frames", *common, "--identities", "0", "1", "--n_frames", "60",
+                                          "--out_dir", voca], **cap)
+        counted("voca_animation:grid", ["grid", "--out_dir", voca])
+        counted("compute_fid_for_models", [*common, "--n_samples", "512", "--sigmas", "0.0", "1.0", "--out",
+                                           os.path.join(tmp, "fid.json")], **cap)
+        counted("show_training_data", ["--run_id", "0", "--flame_resources", "synthetic", "--device", "cuda",
+                                       "--batch", "8", "--n_batches", "2", "--out_dir", os.path.join(tmp, "data_viz")],
+                **cap)
+
+        recon = os.path.join(tmp, "recon")
+        train_c = child("recon_train", ["--run_id", "8", "--synthetic_images", "renders", "--synthetic_n",
+                                        str(RECON_DATASET), "--total_iters", str(RECON_STEPS), "--checkpoint_every",
+                                        str(RECON_CKPT_EVERY), "--log_every", str(RECON_CKPT_EVERY),
+                                        "--inception_weights", "random", "--fid_every", "1000", "--fid_n_samples",
+                                        "64", "--fid_real_samples", str(RECON_DATASET), "--out_dir", recon,
+                                        "--no_mesh"])
+        check_train_child(train_c, "recon_train", RECON_STEPS, RUN8_KERNELS)
+        counted("recon_trend", ["--out_dir", recon, "--run_id", "8", "--synthetic_n", str(RECON_DATASET),
+                                "--device", "cuda"], **cap)
+
+        rsens = os.path.join(tmp, "rsens")
+        arms = {}
+        orig_command = raster_sensitivity.train_command
+
+        def arm_command(args, out, seed):
+            cmd = orig_command(args, out, seed)
+            assert cmd[1:3] == ["-m", "gif_tpu_torch.train"], cmd
+            return counted_train_command(out + ".counts.json", cmd[3:])
+
+        raster_sensitivity.train_command = arm_command
+        release()
+        t0 = time.perf_counter()
+        try:
+            rs = raster_sensitivity.main(["--iters", str(RSENS_ITERS), "--log_every", str(RSENS_LOG_EVERY),
+                                          "--max_ratio", str(RSENS_MAX_RATIO), "--out_dir", rsens,
+                                          "--device", "cuda"])
+        finally:
+            raster_sensitivity.train_command = orig_command
+        secs["raster_sensitivity"] = time.perf_counter() - t0
+        for arm in ("plain", "cuda", "plain_reseed"):
+            with open(os.path.join(rsens, arm + ".counts.json")) as f:
+                arms[arm] = json.load(f)
+            launches[f"raster_sensitivity:{arm}"] = arms[arm]["launches"]
+            take_errs(arms[arm]["errs"])
+            check_train_child(arms[arm], arm, RSENS_ITERS, [k for k in RUN8_KERNELS if arm == "cuda" or k != "raster"])
+            assert (arms[arm]["launches"]["raster"] > 0) == (arm == "cuda"), (arm, arms[arm]["launches"])
+        assert arms["cuda"]["recorded"] and arms["cuda"]["checked"], arms["cuda"]["recorded"]
+        assert rs["rows"] == RSENS_ITERS // RSENS_LOG_EVERY and rs["ratio"] <= RSENS_MAX_RATIO, rs
+
+        t0 = time.perf_counter()
+        launched, n_bit = rasterizer_backends_bit_equal(res)
+        bit_s = time.perf_counter() - t0
+
+        # The host-only scripts on what the runs wrote.
+        t0 = time.perf_counter()
+        run_script("make_image_grid", ["--pattern", os.path.join(tmp, "study", "faces", "s_*.png"), "--n_row", "4",
+                                       "--n_col", "4", "--out", os.path.join(tmp, "stitched.png")])
+        import importlib.util
+
+        # plot_fid draws its curve where matplotlib is installed, and prints
+        # the best checkpoint either way.
+        has_plot = importlib.util.find_spec("matplotlib") is not None
+        run_script("plot_fid", ["--run_dir", os.path.join(recon, "8"), "--out", os.path.join(tmp, "fid_curve.png")])
+        for study, d in (("association", "study"), ("comparison", "study_ab")):
+            run_script("mturk_results", ["csv", "--study", study, "--stimulus_dir", os.path.join(tmp, d),
+                                         "--out", os.path.join(tmp, f"batch_{study}.csv")])
+        host_s = time.perf_counter() - t0
+
+        # Checks: the files each script advertises, live images, no overflow.
+        pngs = [os.path.join(tmp, p) for p in (
+            "study/faces/s_15.png", "study/renders/s_15.png", "study_ab/model_a/s_15.png", "study_ab/model_b/s_15.png",
+            "voca/selected_ids_1/59.png", "voca/selected_ids_1/mesh_textured_59.png",
+            "voca/selected_ids_0/mesh_normal_0.png", "data_viz/batch_1.png", "stitched.png")]
+        pngs += [os.path.join(tmp, "fid_curve.png")] if has_plot else []
+        _images_live(pngs)
+        for p in ("study/key.json", "voca/voca_selected_ids.gif", "batch_association.csv", "batch_comparison.csv",
+                  "batch_comparison.csv.key.json", "recon/8/recon_trend.json", "rsens/raster_sensitivity.json"):
+            assert os.path.getsize(os.path.join(tmp, p)) > 0, p
+        with open(os.path.join(tmp, "batch_comparison.csv")) as f:
+            assert len(f.read().splitlines()) == 17
+        for key, probe in probes.items():
+            assert probe.render_overflows == 0, (key, probe.render_overflows)
+            for _, _, images, conds in probe.samples:
+                assert np.isfinite(images).all() and np.isfinite(conds).all() and images.max() > images.min(), key
+        rec = first.recorders[0]
+        assert len(rec.rounds) == 1 and all(rec.rounds[0][k] for k in GEN_KERNELS), rec.rounds
+        for key in ("mturk_stimuli:association", "mturk_stimuli:comparison", "voca_animation:frames",
+                    "compute_fid_for_models", "recon_trend"):
+            n = launches[key]
+            assert all(n[KERNELS[k]["name"]] > 0 for k in GEN_KERNELS), (key, n)
+            assert all(n[KERNELS[k]["name"]] == 0 for k in ("flr_bwd", "blur_vjp", "scatter")), (key, n)
+        assert launches["show_training_data"]["raster"] > 0 and launches["show_training_data"]["sampler"] > 0
+        assert sum(launches["voca_animation:grid"].values()) == 0
+
+        with open(os.path.join(tmp, "fid.json")) as f:
+            fid = json.load(f)["fid"]
+        # sigma 0 repeats the reference's own generations: its distance is the
+        # host sqrtm's rounding of 0, against the traces it cancels.
+        (mu_r, sig_r, _, sig_0), _ = probes["compute_fid_for_models"].stats
+        zero_tol = 1e-3 * float(np.trace(sig_r) + np.trace(sig_0))
+        assert abs(fid["0.0"]) <= zero_tol and fid["0.0"] < fid["1.0"], (fid, zero_tol)
+        with open(os.path.join(tmp, "recon", "8", "recon_trend.json")) as f:
+            trend = json.load(f)
+        assert [r["step"] for r in trend] == [0, RECON_CKPT_EVERY, RECON_STEPS], trend
+        assert all(np.isfinite(r[k]) for r in trend for k in ("ema_recon", "live_recon")), trend
+        assert len(train_c["fids"]) == 1 and np.isfinite(train_c["fids"][0]), train_c["fids"]
+
+        n_images = {
+            "mturk_stimuli:association": 16, "mturk_stimuli:comparison": 32,
+            "voca_animation:frames": 2 * 60, "compute_fid_for_models": 3 * 512, "show_training_data": 2 * 8,
+            "recon_trend": 3 * 2 * 64, "recon_train": RECON_STEPS * TRAIN_BATCH,
+            "raster_sensitivity": 3 * RSENS_ITERS * TRAIN_BATCH,
+        }
+        arm_ips = {arm: float(np.median([m["imgs_per_sec"] for _, m in _csv_metrics(rsens, arm)]))
+                   for arm in arms}
+        log(f"phase study: tiny card-vs-CPU checks {t_tiny:.2f} s; scripts at full width, host clock (s / images / "
+            f"images/s): " + "; ".join(f"{k} {secs[k]:.2f} / {n_images.get(k, 0)} / "
+                                       f"{n_images.get(k, 0) / secs[k]:.2f}" for k in secs)
+            + f"; host-only scripts {host_s:.2f} s (the FID curve {'drawn' if has_plot else 'not drawn: no matplotlib'})"
+            f"; on {smi}")
+        log(f"phase study launches: {launches}; recorded launches (mturk's first batch, each train child's first step "
+            f"and FID batch) max_abs_err {errs}; render overflow 0")
+        log(f"phase study FID vs corruption (shape, 512 samples, random Inception): {fid} (sigma 0 within "
+            f"{zero_tol:.3g} of 0); recon trend {trend}; recon run FID (random Inception, untrained) "
+            f"{train_c['fids'][0]:.4f}; on {smi}")
+        log(f"phase study raster_sensitivity (run_id 8, full width, batch {TRAIN_BATCH}, {RSENS_ITERS} steps, a row "
+            f"every {RSENS_LOG_EVERY}): {json.dumps(rs)}; arms' median images/s (metrics.csv) {arm_ips}; one "
+            f"batch of {n_bit} rasterized bit-equal under cuda and plain ({launched} kernel-1 launch, {bit_s:.2f} s); "
+            f"on {smi}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.2f} s in all")
+    return launches, errs, rs
+
+
+def _csv_metrics(rsens: str, arm: str) -> list:
+    """The (step, row) pairs of an arm's metrics.csv, as floats."""
+    return [(int(r["step"]), {k: float(v) for k, v in r.items()})
+            for r in _csv_rows(os.path.join(rsens, arm, "8", "metrics.csv"))]
+
+
 def main() -> int:
     import torch
 
@@ -3409,6 +3832,9 @@ def main() -> int:
     # the deterministic resume, serve --ckpt, the converters ---
     slice_parts, errs_slice = phase_21(res, counters, smi)
 
+    # --- phase 22: the study and analysis scripts, raster_sensitivity ---
+    study_launches, errs_study, _ = study_scripts(counters, smi)
+
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
     # forward kernels carry their served-path numbers under "serve", every
@@ -3436,11 +3862,13 @@ def main() -> int:
         r["data_parallel"] = {"nccl_launches": nccl_parts[kind], **dp_parts[kind]}
         r["generation"] = {"launches": gen_launches[meta["name"]]}
         r["phase21"] = slice_parts[kind]
+        by_script = {key: n[meta["name"]] for key, n in study_launches.items()}
+        r["scripts22"] = {"launches": sum(by_script.values()), "by_script": by_script}
         if kind == "scatter":
             r["albedo"] = albedo
         r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),
                                errs_dg.get(kind, 0.0), errs_loop.get(kind, 0.0), errs_gen.get(kind, 0.0),
-                               errs_slice.get(kind, 0.0),
+                               errs_slice.get(kind, 0.0), errs_study.get(kind, 0.0),
                                albedo["max_abs_err"] if kind == "scatter" else 0.0)
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
     print(json.dumps({"kernels": records}))
@@ -3455,5 +3883,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--deterministic-child"]:  # phase 21's child process
         deterministic_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--counted-train"]:  # phase 22's training children
+        counted_train_child(sys.argv[2], sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

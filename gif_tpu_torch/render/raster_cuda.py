@@ -21,7 +21,10 @@ bins with ``bin_faces`` / ``face_table``; the kernel equals it bit for bit.
 (:class:`RasterizeWithAttrs`) on either device: the interpolated attributes
 are differentiable in the corner attributes through
 :func:`face_attrs_vjp`, an ``index_add_`` of ``bary * g`` over the winning
-faces (the port of JAX's ``_rwa_bwd``, an XLA segment-sum there).
+faces (the port of JAX's ``_rwa_bwd``, an XLA segment-sum there).  Its
+``backend`` (:func:`raster_backend`, ``GIF_TPU_TORCH_RASTER``) can force
+the plain version onto CUDA tensors for the renderer-numerics experiment;
+the default never does.
 
 :func:`morton_face_order` is the JAX package's one-time spatial face
 permutation, kept for callers that want spatially coherent face ids; the
@@ -30,6 +33,8 @@ mesh's own face order (face ids then match the reference's CPU path).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -164,19 +169,45 @@ def face_attrs_vjp(tri_id: torch.Tensor, bary: torch.Tensor, g: torch.Tensor, n_
     return out.reshape(b, n_faces, 3, d)
 
 
+RASTER_BACKENDS = ("auto", "cuda", "plain")
+
+
+def raster_backend(requested: str = "auto") -> str:
+    """The rasterizer a render takes: ``GIF_TPU_TORCH_RASTER`` when it is
+    set, else ``requested`` (the port of JAX's ``GIF_TPU_RASTER`` /
+    ``raster_backend`` switch, ``gif_tpu/render/renderer.py:131-135``).
+
+    - ``auto``: kernel 1 on CUDA tensors, :func:`rasterize_plain` on CPU
+      ones (the main path; nothing on it sets another value);
+    - ``cuda``: kernel 1; CPU tensors raise;
+    - ``plain``: :func:`rasterize_plain` on whatever device the tensors are
+      on, with the same attribute VJP.  It exists for the renderer-numerics
+      experiment (``gif_tpu_torch.scripts.raster_sensitivity``).
+
+    Any other value raises."""
+    backend = os.environ.get("GIF_TPU_TORCH_RASTER", requested)
+    if backend not in RASTER_BACKENDS:
+        raise ValueError(f"raster backend must be one of {RASTER_BACKENDS}, got {backend!r}")
+    return backend
+
+
 class RasterizeWithAttrs(torch.autograd.Function):
-    """Kernel 1 (its plain version on the CPU) with the attribute VJP:
-    differentiable in ``face_attrs``; the positions get no gradient, as in
-    the reference rasterizer."""
+    """Kernel 1 (its plain version on the CPU, or where ``backend`` is
+    ``plain``) with the attribute VJP: differentiable in ``face_attrs``;
+    the positions get no gradient, as in the reference rasterizer."""
 
     @staticmethod
-    def forward(ctx, face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile):
-        if face_verts_pix.is_cuda:
-            rast, attr_img = rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
-        else:
+    def forward(ctx, face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile, backend="auto"):
+        if backend not in RASTER_BACKENDS:
+            raise ValueError(f"raster backend must be one of {RASTER_BACKENDS}, got {backend!r}")
+        if backend == "cuda" and not face_verts_pix.is_cuda:
+            raise ValueError("raster backend 'cuda' needs CUDA tensors: kernel 1 has no CPU mode")
+        if backend == "plain" or not face_verts_pix.is_cuda:
             rast, attr_img = rasterize_plain(
                 face_verts_pix, face_attrs, h=h, w=w, tile=tile, max_tris_per_tile=max_tris_per_tile
             )
+        else:
+            rast, attr_img = rasterize_cuda(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
         ctx.save_for_backward(rast.tri_id, rast.bary)
         ctx.n_faces, ctx.attr_dtype = face_attrs.shape[1], face_attrs.dtype
         ctx.mark_non_differentiable(*rast)
@@ -185,10 +216,10 @@ class RasterizeWithAttrs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         if not ctx.needs_input_grad[1]:
-            return (None,) * 6
+            return (None,) * 7
         tri_id, bary = ctx.saved_tensors
         d_attrs = face_attrs_vjp(tri_id, bary, grads[-1].float(), ctx.n_faces)
-        return None, d_attrs.to(ctx.attr_dtype), None, None, None, None
+        return None, d_attrs.to(ctx.attr_dtype), None, None, None, None, None
 
 
 def rasterize_with_attrs(
@@ -198,12 +229,14 @@ def rasterize_with_attrs(
     w: int,
     tile: int = 32,
     max_tris_per_tile: int = 512,
+    backend: str = "auto",
 ):
     """Rasterize (B, F, 3, 3) pixel-space faces and interpolate their
     (B, F, 3, D) corner attributes: returns (RasterOutput, attr_img
-    (B, H, W, D)), differentiable in ``face_attrs``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    *rast, attr_img = RasterizeWithAttrs.apply(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile)
+    (B, H, W, D)), differentiable in ``face_attrs``.  Under ``backend``
+    ``auto`` CPU tensors take the plain version and CUDA tensors launch the
+    kernel (:func:`raster_backend` for the others)."""
+    *rast, attr_img = RasterizeWithAttrs.apply(face_verts_pix, face_attrs, h, w, tile, max_tris_per_tile, backend)
     return RasterOutput(*rast), attr_img
 
 

@@ -25,6 +25,7 @@ from gif_tpu_torch.flame.camera import batch_orth_proj
 from gif_tpu_torch.flame.decoder import flame_decode
 from gif_tpu_torch.flame.mesh import face_vertices, vertex_normals
 from gif_tpu_torch.render.raster import auto_max_tris_per_tile, to_pixel_space
+from gif_tpu_torch.render.raster_cuda import raster_backend as _resolve_backend
 from gif_tpu_torch.render.raster_cuda import rasterize_with_attrs
 from gif_tpu_torch.render.sampler_cuda import grid_sample
 from gif_tpu_torch.render.shading import albedo_from_tex_code, sh9_shading
@@ -61,6 +62,7 @@ def render_tex_and_normal(
     max_tris_per_tile: int | None = 384,
     constant_albedo: float | None = None,
     assert_no_overflow: bool = False,
+    raster_backend: str = "auto",
 ) -> RenderedMaps:
     """Render textured + normal-map conditioning images from FLAME codes.
 
@@ -77,7 +79,13 @@ def render_tex_and_normal(
       assert_no_overflow: raise ``RuntimeError`` if any tile dropped
         triangles; the check reads the flags back to the host, so only
         this switch makes the call wait on the device.
+      raster_backend: ``auto`` (kernel 1 on CUDA tensors, the plain
+        rasterizer on CPU ones), or force ``cuda`` / ``plain``; the
+        environment variable ``GIF_TPU_TORCH_RASTER`` overrides it, for
+        entry points that do not pass it
+        (:func:`gif_tpu_torch.render.raster_cuda.raster_backend`).
     """
+    backend = _resolve_backend(raster_backend)
     b = shapecode.shape[0]
     dev, dtype = shapecode.device, shapecode.dtype
     if lightcode.ndim == 2:
@@ -100,7 +108,7 @@ def render_tex_and_normal(
     face_uv = res.tensor("uv_coords", dev, dtype)[faces].expand(b, -1, -1, -1)
     attrs = torch.cat([face_norm, face_uv], dim=-1)
 
-    rast, interp = rasterize_with_attrs(fv, attrs, image_size, image_size, tile, max_tris_per_tile)
+    rast, interp = rasterize_with_attrs(fv, attrs, image_size, image_size, tile, max_tris_per_tile, backend)
     pix_norm = interp[..., :3]
     pix_uv = interp[..., 3:5]
     pix_norm = pix_norm / torch.clamp(torch.linalg.norm(pix_norm, dim=-1, keepdim=True), min=1e-6)

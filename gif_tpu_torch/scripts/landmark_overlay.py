@@ -21,14 +21,17 @@ import numpy as np
 from gif_tpu_torch.scripts.generate_random_samples import add_common_args, load_params, setup
 
 
-def project_landmarks(res, flame: np.ndarray, image_size: int, device="cpu") -> np.ndarray:
+def project_landmarks(res, flame: np.ndarray, image_size: int, device=None) -> np.ndarray:
     """(N, 236) FLAME params -> (N, 68, 2) pixel-space dynamic-contour
-    landmarks (the lmk2d set), with the renderer's camera and y flip."""
+    landmarks (the lmk2d set), with the renderer's camera and y flip,
+    computed on ``device`` (CUDA unless the caller passes another)."""
     import torch
 
+    from gif_tpu_torch.device import resolve_device
     from gif_tpu_torch.flame.camera import batch_orth_proj
     from gif_tpu_torch.flame.decoder import flame_decode_full
 
+    device = resolve_device(device)
     with torch.inference_mode():
         f = torch.as_tensor(np.asarray(flame, np.float32), device=device)
         _, lmk2d, _ = flame_decode_full(res, f[:, 0:100], f[:, 100:150], f[:, 150:156])

@@ -160,7 +160,10 @@ def run(args, group=None):
             if main_rank:
                 print("WARNING: no --data given; training on synthetic images")
             dataset = SyntheticFlameDataset(n=args.synthetic_n, size=256)
-        cfg = dataclasses.replace(cfg, embedding_vocab_size=len(dataset))
+        # One identity row per frame: the sampler draws frame indices, bad
+        # frames included in the numbering (len(dataset) counts only the
+        # good ones; JAX's gather clamps the indices past it, torch raises).
+        cfg = dataclasses.replace(cfg, embedding_vocab_size=len(dataset.images))
 
     cfg = dataclasses.replace(
         cfg,

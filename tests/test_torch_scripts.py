@@ -37,12 +37,17 @@ from gif_tpu.train.config import TINY_OVERRIDES
 from gif_tpu.utils import viz as jviz
 from gif_tpu_torch.eval.sampling import FlameSampler as TFlameSampler
 from gif_tpu_torch.utils import viz as tviz
+from torch_port_common import cpu_threads
 
 VOCAB = 16
 COND_STEP = 1.0 / 255.0  # one 8-bit step of a [0, 1] map
 RTOL, ATOL = 1e-4, 1e-5
 TEX_RTOL = TEX_ATOL = 1e-3
 MAX_FLIPPED_TEXELS = 4
+# What save_set_of_images writes that is a condition render: by prefix,
+# or by directory (the perceptual study's renders/).
+COND_PREFIXES = ("cond_", "rndr_", "norm_", "mesh_", "mesh_textured_", "mesh_normal_")
+COND_DIRS = ("renders",)
 
 # script: (its arguments, whether the JAX script has --tiny)
 SCRIPTS = {
@@ -53,6 +58,14 @@ SCRIPTS = {
     "teaser": (["--n_identities", "1", "--steal_textures"], True),
     "landmark_overlay": (["--n", "3"], False),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # Six test processes share the machine under tier-1: cap each one's
+    # thread pools (torch_port_common.cpu_threads).
+    with cpu_threads():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +111,8 @@ class Recorder:
             project = script_mod.project_landmarks
 
             def record(*a, **kw):
+                # The port's helper defaults to the card: callers name the device.
+                assert script_mod.__name__.startswith("scripts.") or len(a) == 4 or "device" in kw
                 pts = project(*a, **kw)
                 self.landmarks.append(pts)
                 return pts
@@ -105,15 +120,21 @@ class Recorder:
             monkeypatch.setattr(script_mod, "project_landmarks", record)
 
 
-def _run_both(name, trees, tmp_path, monkeypatch, capsys, extra=()):
-    args, jax_tiny = SCRIPTS[name]
-    common = ["--flame_resources", "synthetic", "--vocab", str(VOCAB), "--converted_ckpt", trees, *args, *extra]
-    out_flag = "--out" if name == "generate_gif" else "--out_dir"
+def run_pair(name, argv, tmp_path, monkeypatch, capsys, jax_tiny, out_args=None, patch_jax=None,
+             patch_port=None):
+    """Run ``scripts.<name>`` and ``gif_tpu_torch.scripts.<name>`` in this
+    process with ``argv`` plus their output flags (``out_args(root)``;
+    default ``--out_dir <root>/out``), each under a :class:`Recorder`; the
+    port with ``--tiny --device cpu``, the JAX script with ``--tiny`` or,
+    without it, ``TINY_OVERRIDES`` through a patched ``get_config``.
+    ``patch_jax`` / ``patch_port`` take the monkeypatch context and the
+    run's root before their script runs.  Returns the two recorders (each
+    with ``stdout``, its root replaced by ``<out>``)."""
+    out_args = out_args or (lambda root: ["--out_dir", os.path.join(root, "out")])
     runs = {}
     for pkg in ("jax", "port"):
         root = str(tmp_path / pkg)
         os.makedirs(root, exist_ok=True)
-        out = os.path.join(root, "anim.gif") if name == "generate_gif" else os.path.join(root, "out")
         with monkeypatch.context() as m:
             if pkg == "jax":
                 mod = importlib.import_module(f"scripts.{name}")
@@ -121,15 +142,29 @@ def _run_both(name, trees, tmp_path, monkeypatch, capsys, extra=()):
                 if not jax_tiny:
                     get_config = jtrain.get_config
                     m.setattr(jtrain, "get_config", lambda run_id, **kw: get_config(run_id, **kw, **TINY_OVERRIDES))
-                m.setattr(sys, "argv", [name, *common, out_flag, out, *(["--tiny"] if jax_tiny else [])])
+                if patch_jax:
+                    patch_jax(m, root)
+                m.setattr(sys, "argv", [name, *argv, *out_args(root), *(["--tiny"] if jax_tiny else [])])
                 mod.main()
             else:
                 mod = importlib.import_module(f"gif_tpu_torch.scripts.{name}")
                 rec = Recorder(m, tviz, TFlameSampler, mod, root)
-                mod.main([*common, out_flag, out, "--tiny", "--device", "cpu"])
+                if patch_port:
+                    patch_port(m, root)
+                mod.main([*argv, *out_args(root), "--tiny", "--device", "cpu"])
         rec.stdout = capsys.readouterr().out.replace(root, "<out>")
         runs[pkg] = rec
     return runs["jax"], runs["port"]
+
+
+def _run_both(name, trees, tmp_path, monkeypatch, capsys, extra=()):
+    args, jax_tiny = SCRIPTS[name]
+    common = ["--flame_resources", "synthetic", "--vocab", str(VOCAB), "--converted_ckpt", trees, *args, *extra]
+    if name == "generate_gif":
+        out_args = lambda root: ["--out", os.path.join(root, "anim.gif")]
+    else:
+        out_args = None
+    return run_pair(name, common, tmp_path, monkeypatch, capsys, jax_tiny, out_args)
 
 
 def _check_cond(got, want, what):
@@ -163,16 +198,18 @@ def _check_samples(j, t):
         np.testing.assert_allclose(t_img[unflipped], j_img[unflipped], rtol=RTOL, atol=ATOL)
 
 
-def _check_saved(j, t, tmp_path):
-    """Every array handed to save_set_of_images, and the PNGs written."""
-    _check_samples(j, t)
+def _check_saved(j, t, tmp_path, samples=True):
+    """Every array handed to save_set_of_images, and the PNGs written (and
+    with ``samples`` every sample call, :func:`_check_samples`)."""
+    if samples:
+        _check_samples(j, t)
     assert j.saved.keys() == t.saved.keys()
     for (rel, prefix), want in j.saved.items():
         got = t.saved[(rel, prefix)]
         assert got.shape == want.shape, (rel, prefix)
         what = f"{rel}/{prefix}"
         flipped = np.zeros(got.shape[:3], bool)
-        if prefix in ("cond_", "rndr_", "norm_", "mesh_"):
+        if prefix in COND_PREFIXES or os.path.basename(rel) in COND_DIRS:
             _check_cond(got, want, what)
         elif prefix == "texture_":
             off = ~np.isclose(got, want, rtol=TEX_RTOL, atol=TEX_ATOL)
