@@ -170,6 +170,15 @@ Phases (each raises on failure; nothing is caught):
     there, the first step held launch by launch; the ratio at most 1.5)
     and one batch rasterized bit-equal under both backends; the host-only scripts on
     what these wrote.  Prints each script's host seconds and images/s.
+23. the port at full width against the JAX package's goldens
+    (:func:`full_width_goldens`, ``tests/golden/torch_full_width.npz``):
+    weights rebuilt from the name-keyed seeding rule, every counter 0, then
+    FLAME decode, the condition render, G (run_id 8 and 0 in f32, run_id 8
+    under bf16), D's scores and parameter gradient, ``FlameSampler.sample``,
+    the texture steal with ``sample_at_points`` and their image gradients,
+    and one R1 train step each of run_id 8 and fused run_id 0, every output
+    held to its golden at its bar (one line each: max abs error, relative
+    L2, bar), TF32 off; all seven kernels launched.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -196,7 +205,8 @@ per run; ``generation``: phase 20's six full-width scripts';
 ``phase21``: the counted launches of each resampling mode's 3 steps and
 of its recorded warm-up step, the deterministic run's and its resume's
 (kernel 6 also its fixed-order timing); ``scripts22``: phase 22's
-launches in all and by script (training children by arm); kernel 6's
+launches in all and by script (training children by arm); ``goldens23``:
+phase 23's launches; kernel 6's
 ``albedo``: its numbers at the albedo
 lookup's gradient), the card's name and power limit as nvidia-smi reports
 them, and the result line.
@@ -3630,6 +3640,82 @@ def study_scripts(counters: dict, smi: str):
     return launches, errs, rs
 
 
+# --- Phase 23: the port at full width against the JAX package's goldens ------
+
+GOLDEN_PATH = os.path.join(ROOT, "tests", "golden", "torch_full_width.npz")
+
+
+def full_width_goldens(res, counters: dict, smi: str) -> dict:
+    """Phase 23: every full-width parity case of
+    :mod:`gif_tpu_torch.tools.full_width_goldens` on the card through the
+    kernels — FLAME decode, the condition render (kernels 1, 2), G in f32
+    for run_id 8 and 0 and under bf16 (3, 4), D's scores and parameter
+    gradient (3, 4, 5 and 4's VJP), ``FlameSampler.sample``, the texture
+    steal and ``sample_at_points`` with their image gradients (2, 6), one
+    run_id-8 and one fused run_id-0 R1 step (all seven) — from weights the
+    name-keyed rule rebuilds, TF32 off, each output held to the golden
+    ``gif_tpu`` made on the CPU (``tests/golden/torch_full_width.npz``) at
+    the case's bar; the G and D cases take the golden's condition maps,
+    the steps its interpolation draws.  Every counter 0 just before the
+    cases and read just after: all seven kernels must launch.  Returns the
+    launches by counter name."""
+    import torch
+
+    from gif_tpu_torch.device import set_tf32_policy
+    from gif_tpu_torch.tools import full_width_goldens as fw
+
+    t_phase = time.perf_counter()
+    set_tf32_policy()
+    golden = fw.Golden(GOLDEN_PATH)
+    cond = golden.whole("render", "cond")
+    n_texels = len(res.texture_x_coords)
+    failed, secs, outs = [], {}, {}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for case in fw.CASES + fw.STEP_CASES:
+        t0 = time.perf_counter()
+        inp = fw.inputs(case, n_texels)
+        if case in fw.STEP_CASES:
+            draws = golden.draws(case)
+            if "interp_identity" in draws:
+                draws["interp_identity"] = int(draws["interp_identity"])
+            out = fw.port_step_outputs(case, res, "cuda", inp, draws)
+        else:
+            out = fw.port_outputs(case, res, "cuda", inp, cond)
+        torch.cuda.synchronize()
+        secs[case] = time.perf_counter() - t0
+        outs[case] = out
+        assert sorted(out) == golden.outputs(case), (case, sorted(out), golden.outputs(case))
+        for out_name in golden.outputs(case):
+            bar = fw.BARS[(case, out_name)]
+            a, r, ok, worst = golden.check(case, out_name, out[out_name])
+            what = "flips" if bar.kind in ("levels", "flips") else "rel L2"
+            log(f"phase goldens {case}/{out_name}: max abs err {a:.4g}, {what} {r:.4g}"
+                + (f" (worst tensor {worst})" if worst else "") + f"; bar {bar.text()}"
+                + ("" if ok else " -- PAST THE BAR"))
+            if not ok:
+                failed.append(f"{case}/{out_name}")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase goldens: {len(fw.CASES) + len(fw.STEP_CASES)} cases at full width (256 px, 512 channels, 69158 "
+        f"identities, mesh {res.n_vertices} vertices / {res.n_faces} faces) in {time.perf_counter() - t_phase:.2f} s; "
+        "seconds by case " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f"; launches {launches}; on {smi}")
+    assert not failed, f"past the golden's bar: {failed}"
+    assert all(n > 0 for n in launches.values()), f"a kernel never launched in phase 23: {launches}"
+
+    # The card's own spread between two identical calls of a step (cuDNN
+    # picks nondeterministic algorithms), beside the golden's errors.
+    again = fw.port_step_outputs("step8", res, "cuda", fw.inputs("step8"), golden.draws("step8"))
+    spread = {}
+    for k in ("d_grad", "g_grad"):
+        _, worst, _, name = fw.check_tree(again[k], outs["step8"][k], fw.Bar("rel_l2", rel_l2=np.inf))
+        _, tree, _, _ = fw.check_tree(again[k], outs["step8"][k], fw.Bar("tree_l2", rel_l2=np.inf))
+        spread[k] = f"rel L2 {tree:.3g} over the tree, worst tensor {worst:.3g} ({name})"
+    log(f"phase goldens: run_id-8 R1 step, two identical calls on the card: {spread}; on {smi}")
+    return launches
+
+
 def _csv_metrics(rsens: str, arm: str) -> list:
     """The (step, row) pairs of an arm's metrics.csv, as floats."""
     return [(int(r["step"]), {k: float(v) for k, v in r.items()})
@@ -3835,6 +3921,9 @@ def main() -> int:
     # --- phase 22: the study and analysis scripts, raster_sensitivity ---
     study_launches, errs_study, _ = study_scripts(counters, smi)
 
+    # --- phase 23: the port at full width against gif_tpu's goldens ---
+    golden_launches = full_width_goldens(res, counters, smi)
+
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
     # forward kernels carry their served-path numbers under "serve", every
@@ -3864,6 +3953,7 @@ def main() -> int:
         r["phase21"] = slice_parts[kind]
         by_script = {key: n[meta["name"]] for key, n in study_launches.items()}
         r["scripts22"] = {"launches": sum(by_script.values()), "by_script": by_script}
+        r["goldens23"] = {"launches": golden_launches[meta["name"]]}
         if kind == "scatter":
             r["albedo"] = albedo
         r["max_abs_err"] = max(r["max_abs_err"], run0["max_abs_err"], errs_reg.get(kind, 0.0),

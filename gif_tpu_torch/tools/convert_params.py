@@ -75,25 +75,61 @@ def convert_generator_params(g_params: dict, buffers: dict) -> dict:
 _FLAX_CONV = re.compile(r"\.noise\.conv\d+\.weight$")
 
 
-def to_flax_params(sd: dict) -> dict:
-    """The inverse of :func:`convert_params`: a port state_dict (without
-    buffers) -> a nested flax-layout tree of float32 numpy arrays."""
+def flax_layout(name: str, ndim: int) -> tuple[str, tuple | None]:
+    """(flax path joined by ``.``, axis permutation into the flax layout
+    or None) of the port parameter ``name`` of rank ``ndim``."""
+    if _FLAX_CONV.search(name):
+        return name[: -len(".weight")] + ".kernel", (2, 3, 1, 0)
+    if name.endswith(".weight") and ndim == 4:
+        return name, (2, 3, 1, 0)
+    if name.endswith("const_input"):
+        return name, (0, 2, 3, 1)
+    return name, None
+
+
+def _nest(flat: dict) -> dict:
     tree = {}
-    for name, t in sd.items():
-        arr = t.detach().cpu().float().numpy()
-        if _FLAX_CONV.search(name):
-            name = name[: -len(".weight")] + ".kernel"
-            arr = arr.transpose(2, 3, 1, 0)
-        elif name.endswith(".weight") and arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)
-        elif name.endswith("const_input"):
-            arr = arr.transpose(0, 2, 3, 1)
+    for name, leaf_value in flat.items():
         *path, leaf = name.split(".")
         node = tree
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = leaf_value
     return tree
+
+
+def to_flax_params(sd: dict) -> dict:
+    """The inverse of :func:`convert_params`: a port state_dict (without
+    buffers) -> a nested flax-layout tree of float32 numpy arrays."""
+    flat = {}
+    for name, t in sd.items():
+        arr = t.detach().cpu().float().numpy()
+        name, perm = flax_layout(name, arr.ndim)
+        flat[name] = np.ascontiguousarray(arr if perm is None else arr.transpose(perm))
+    return _nest(flat)
+
+
+def flax_shapes(module) -> dict:
+    """The nested flax-layout tree of ``module``'s parameters (buffers left
+    out), each leaf an object carrying only the flax ``shape``: the tree
+    :func:`to_flax_params` would give, without the values.  Works on a
+    module on the meta device."""
+    flat = {}
+    for name, p in module.named_parameters():
+        name, perm = flax_layout(name, p.dim())
+        shape = tuple(p.shape)
+        flat[name] = _Shape(shape if perm is None else tuple(shape[i] for i in perm))
+    return _nest(flat)
+
+
+class _Shape:
+    """A shape-only leaf of :func:`flax_shapes`."""
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def __repr__(self):
+        return f"Shape{self.shape}"
 
 
 def train_state_trees(state) -> dict:
