@@ -176,9 +176,16 @@ Phases (each raises on failure; nothing is caught):
     FLAME decode, the condition render, G (run_id 8 and 0 in f32, run_id 8
     under bf16), D's scores and parameter gradient, ``FlameSampler.sample``,
     the texture steal with ``sample_at_points`` and their image gradients,
-    and one R1 train step each of run_id 8 and fused run_id 0, every output
-    held to its golden at its bar (one line each: max abs error, relative
-    L2, bar), TF32 off; all seven kernels launched.
+    and six R1 train steps on 4 rows — run_id 8 and fused run_id 0 in f32,
+    the bench's own step (run_id 8, bf16) and fused run_id 0 under bf16,
+    run_id 8 with every branch and fused run_id 0 with the direct gradient
+    in f32 —, every output held to its golden at its bar (a bf16 output's
+    widened to ``BF16_K`` times ``gif_tpu``'s own bf16-vs-f32 distance),
+    TF32 off; all seven kernels launched, the scatter in each run_id-0
+    step; then each step again: one line per output with its max abs
+    error, relative L2, bar, ``gif_tpu``'s bf16-vs-f32 distance for a bf16
+    case, and the spread between the two identical calls on the card with
+    its share of the bar.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -3651,14 +3658,22 @@ def full_width_goldens(res, counters: dict, smi: str) -> dict:
     kernels — FLAME decode, the condition render (kernels 1, 2), G in f32
     for run_id 8 and 0 and under bf16 (3, 4), D's scores and parameter
     gradient (3, 4, 5 and 4's VJP), ``FlameSampler.sample``, the texture
-    steal and ``sample_at_points`` with their image gradients (2, 6), one
-    run_id-8 and one fused run_id-0 R1 step (all seven) — from weights the
-    name-keyed rule rebuilds, TF32 off, each output held to the golden
-    ``gif_tpu`` made on the CPU (``tests/golden/torch_full_width.npz``) at
-    the case's bar; the G and D cases take the golden's condition maps,
-    the steps its interpolation draws.  Every counter 0 just before the
-    cases and read just after: all seven kernels must launch.  Returns the
-    launches by counter name."""
+    steal and ``sample_at_points`` with their image gradients (2, 6), and
+    six R1 train steps (all seven): run_id 8 and fused run_id 0 in f32; the
+    bench's own step (run_id 8 under the bf16 policy) and fused run_id 0
+    under bf16; run_id 8 with every branch (path length, embedding
+    regularizer, negatives, instance noise, crop / flip) and fused run_id 0
+    with the direct gradient, in f32 — from weights the name-keyed rule
+    rebuilds, TF32 off, each output held to the golden ``gif_tpu`` made on
+    the CPU (``tests/golden/torch_full_width.npz``) at the case's bar (a
+    bf16 case's widened to ``BF16_K`` times ``gif_tpu``'s own bf16-vs-f32
+    distance, printed beside it); the G and D cases take the golden's
+    condition maps, the steps its interpolation draws and shuffle shift.
+    Every counter 0 just before the cases and read just after: all seven
+    kernels must launch, the scatter in every run_id-0 step.  Then each step
+    runs again and its outputs' spread between the two identical calls (the
+    card's nondeterminism) is printed beside each output's error and bar.
+    Returns the launches by counter name."""
     import torch
 
     from gif_tpu_torch.device import set_tf32_policy
@@ -3669,50 +3684,71 @@ def full_width_goldens(res, counters: dict, smi: str) -> dict:
     golden = fw.Golden(GOLDEN_PATH)
     cond = golden.whole("render", "cond")
     n_texels = len(res.texture_x_coords)
-    failed, secs, outs = [], {}, {}
+    failed, secs, outs, checks, case_launches = [], {}, {}, {}, {}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     for case in fw.CASES + fw.STEP_CASES:
         t0 = time.perf_counter()
+        before = {k: fn.launches for k, fn in counters.items()}
         inp = fw.inputs(case, n_texels)
         if case in fw.STEP_CASES:
-            draws = golden.draws(case)
-            if "interp_identity" in draws:
-                draws["interp_identity"] = int(draws["interp_identity"])
-            out = fw.port_step_outputs(case, res, "cuda", inp, draws)
+            out = fw.port_step_outputs(case, res, "cuda", inp, golden.draws(case))
         else:
             out = fw.port_outputs(case, res, "cuda", inp, cond)
         torch.cuda.synchronize()
         secs[case] = time.perf_counter() - t0
+        case_launches[case] = {k: fn.launches - before[k] for k, fn in counters.items()}
         outs[case] = out
         assert sorted(out) == golden.outputs(case), (case, sorted(out), golden.outputs(case))
         for out_name in golden.outputs(case):
-            bar = fw.BARS[(case, out_name)]
-            a, r, ok, worst = golden.check(case, out_name, out[out_name])
-            what = "flips" if bar.kind in ("levels", "flips") else "rel L2"
-            log(f"phase goldens {case}/{out_name}: max abs err {a:.4g}, {what} {r:.4g}"
-                + (f" (worst tensor {worst})" if worst else "") + f"; bar {bar.text()}"
-                + ("" if ok else " -- PAST THE BAR"))
-            if not ok:
+            checks[case, out_name] = golden.check(case, out_name, out[out_name])
+            if not checks[case, out_name][2]:
                 failed.append(f"{case}/{out_name}")
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
+
+    # The card's own spread: each step again, identical inputs and state.
+    spread = {}
+    for case in fw.STEP_CASES:
+        again = fw.port_step_outputs(case, res, "cuda", fw.inputs(case), golden.draws(case))
+        spread[case] = fw.distances(again, outs[case])
+    for case in fw.CASES + fw.STEP_CASES:
+        for out_name in golden.outputs(case):
+            bar = fw.BARS[(case, out_name)]
+            a, r, ok, worst = checks[case, out_name]
+            what = "flips" if bar.kind in ("levels", "flips") else "rel L2"
+            line = (f"phase goldens {case}/{out_name}: max abs err {a:.4g}, {what} {r:.4g}"
+                    + (f" (worst tensor {worst})" if worst else "") + f"; bar {bar.text()}")
+            dist = golden.bf16_dist(case, out_name)
+            if dist is not None:
+                line += f", widened to {fw.BF16_K:g} x gif_tpu's bf16-vs-f32 " + fw.distance_text(dist)
+                if bar.kind == "rel_l2":
+                    floor = fw.bf16_floor(dist)
+                    line += (f"; the worst tensor's limit {fw.bf16_limit(bar.rel_l2, dist[0][worst], floor):.3g} "
+                             f"(its own d {dist[0][worst]:.3g}, the floor {floor:.3g})")
+                if out_name == "metrics":
+                    want = golden.entries[f"{case}/metrics/samples"].astype(np.float64)
+                    err = np.abs(outs[case]["metrics"] - want)
+                    rel = np.divide(err, np.abs(want), out=err.copy(), where=want != 0)
+                    line += "; per metric error / limit: " + ", ".join(
+                        f"{k} {e:.3g} / {lim:.3g}" for k, e, lim in
+                        zip(fw.step_metrics(case), rel, fw.bf16_limit(bar.rtol, dist[0])))
+            if case in spread:
+                share = fw.spread_limit_share(bar, spread[case][out_name], dist)
+                line += (f"; two identical calls on the card: {fw.distance_text(spread[case][out_name])}, "
+                         f"{share:.3g} of the bar" + (" -- THE CARD'S SPREAD IS PAST THE BAR" if share > 1 else ""))
+            log(line + ("" if ok else " -- PAST THE BAR"))
     log(f"phase goldens: {len(fw.CASES) + len(fw.STEP_CASES)} cases at full width (256 px, 512 channels, 69158 "
-        f"identities, mesh {res.n_vertices} vertices / {res.n_faces} faces) in {time.perf_counter() - t_phase:.2f} s; "
-        "seconds by case " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f"; launches {launches}; on {smi}")
+        f"identities, mesh {res.n_vertices} vertices / {res.n_faces} faces) in {time.perf_counter() - t_phase:.2f} s "
+        "(the steps' second calls included); seconds by case " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; launches {launches}; launches by step case "
+        + "; ".join(f"{c}: {case_launches[c]}" for c in fw.STEP_CASES) + f"; on {smi}")
     assert not failed, f"past the golden's bar: {failed}"
     assert all(n > 0 for n in launches.values()), f"a kernel never launched in phase 23: {launches}"
-
-    # The card's own spread between two identical calls of a step (cuDNN
-    # picks nondeterministic algorithms), beside the golden's errors.
-    again = fw.port_step_outputs("step8", res, "cuda", fw.inputs("step8"), golden.draws("step8"))
-    spread = {}
-    for k in ("d_grad", "g_grad"):
-        _, worst, _, name = fw.check_tree(again[k], outs["step8"][k], fw.Bar("rel_l2", rel_l2=np.inf))
-        _, tree, _, _ = fw.check_tree(again[k], outs["step8"][k], fw.Bar("tree_l2", rel_l2=np.inf))
-        spread[k] = f"rel L2 {tree:.3g} over the tree, worst tensor {worst:.3g} ({name})"
-    log(f"phase goldens: run_id-8 R1 step, two identical calls on the card: {spread}; on {smi}")
+    for case in fw.STEP_CASES:
+        need = [k for k in counters if k != "bilinear_scatter" or fw.step_config(case).run_id == 0]
+        assert all(case_launches[case][k] > 0 for k in need), f"{case}: a kernel never launched: {case_launches[case]}"
     return launches
 
 

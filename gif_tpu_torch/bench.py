@@ -31,6 +31,8 @@ import torch
 
 METRIC = "ffhq256_train_imgs_per_sec_per_chip"
 BASELINE_IMGS_PER_SEC = 16.0 / 17.0  # the reference's 17 s/iter anecdote
+BENCH_VOCAB = 1024  # bench.py's identity table
+BENCH_RASTER_CAPACITY = 512  # run_id 8's raster capacity (triangles a tile holds)
 
 
 def bench_batch(cfg, batch: int, device) -> dict:
@@ -68,12 +70,12 @@ def bench_setup(run_id: int = 8, device=None, tiny: bool = False):
     dev = resolve_device(device)
     batch = 4 if tiny else 16
     kwargs = {"r1_interval": 1} if run_id == 8 else {}
-    cfg = get_config(run_id, embedding_vocab_size=16 if tiny else 1024, batch_size=batch, **kwargs,
+    cfg = get_config(run_id, embedding_vocab_size=16 if tiny else BENCH_VOCAB, batch_size=batch, **kwargs,
                      **(TINY_OVERRIDES if tiny else {}))
     res = synthetic_flame_resources(seed=1, n_vertices=503) if tiny else synthetic_flame_resources()
     state = create_train_state(cfg, seed=0, device=dev)
     step_rng = torch.Generator()
-    step_fn = make_train_step(cfg, res, device=dev, max_tris_per_tile=512 if run_id == 8 else None,
+    step_fn = make_train_step(cfg, res, device=dev, max_tris_per_tile=BENCH_RASTER_CAPACITY if run_id == 8 else None,
                               generator=step_rng)
     return cfg, state, step_fn, step_rng, bench_batch(cfg, batch, dev)
 

@@ -136,12 +136,23 @@ class ConditionInjection(nn.Module):
         self.dtype = dtype
 
     def forward(self, features, cond):
-        h = cond.to(self.dtype)
-        for i in range(3):
+        # conv0 reads the f32 conditions and its output is cast to the
+        # compute dtype; conv1 and conv2 run in it.  The 8-bit condition
+        # levels k / 255 * 2 - 1 need 9 significant bits, one more than
+        # bf16 holds.  gif_tpu's source rounds them (it casts the
+        # conditions to its compute dtype), but its step as XLA:CPU
+        # compiles it, the reference the parity tests and goldens hold the
+        # port to, convolves the unrounded maps (XLA drops the f32 -> bf16
+        # -> f32 round trip into a conv).  Rounding them here put the
+        # port's bf16 G gradients up to 5.8x further from f32 than that
+        # reference's at 256 px (16 channels); reading them in f32, 2.0x,
+        # at no cost in step time.
+        conv = self.conv0
+        h = F.conv2d(cond.float(), conv.weight, conv.bias, padding=1).to(self.dtype)
+        for i in range(1, 3):
+            h = F.relu(h)
             conv = getattr(self, f"conv{i}")
             h = F.conv2d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype), padding=1)
-            if i < 2:
-                h = F.relu(h)
         return features + h.to(features.dtype)
 
 

@@ -137,7 +137,13 @@ def modulated_conv2d(
     else:
         out = F.conv2d(xs, wc, padding=kh // 2)
     if demodulate:
-        # d_{b,o} = rsqrt( sum_{i,h,w} (w_{oihw} * s_{bi})^2 + eps ), in f32.
-        sigma = torch.square(style.float()) @ torch.square(w.float()).sum((2, 3)).T
-        out = out * torch.rsqrt(sigma + eps)[:, :, None, None].to(out.dtype)
+        out = out * demodulation(w, style, eps)[:, :, None, None].to(out.dtype)
     return out
+
+
+def demodulation(w: torch.Tensor, style: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """(N, Cout) demodulation coefficients ``d_{b,o} = rsqrt( sum_{i,h,w}
+    (w_{oihw} * s_{bi})^2 + eps )`` of the He-scaled weight ``w`` and the
+    styles, in f32 whatever the compute dtype."""
+    sigma = torch.square(style.float()) @ torch.square(w.float()).sum((2, 3)).T
+    return torch.rsqrt(sigma + eps)

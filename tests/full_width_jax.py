@@ -6,7 +6,10 @@ names and layouts (parameter gradients and updates through
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,12 +27,13 @@ def jax_config(run_id: int, compute_dtype: str = "float32", **overrides):
 
 
 @functools.lru_cache(maxsize=None)
-def templates(run_id: int = 8) -> tuple[dict, dict, dict]:
-    """(G params, G buffers, D params) of the full-width models as
-    ``jax.ShapeDtypeStruct`` trees, from ``init`` traced without running."""
+def templates(run_id: int, vocab: int) -> tuple[dict, dict, dict]:
+    """(G params, G buffers, D params) of the full-width models with
+    ``vocab`` identities as ``jax.ShapeDtypeStruct`` trees, from ``init``
+    traced without running."""
     from gif_tpu.train.state import build_models
 
-    cfg = jax_config(run_id)
+    cfg = jax_config(run_id, embedding_vocab_size=vocab)
     gen, disc = build_models(cfg)
     s = cfg.max_size
     cond = jnp.zeros((1, s, s, cfg.cond_channels))
@@ -39,17 +43,17 @@ def templates(run_id: int = 8) -> tuple[dict, dict, dict]:
     return g["params"], g["buffers"], d["params"]
 
 
-@functools.lru_cache(maxsize=2)
-def generator_trees(run_id: int) -> tuple[dict, dict]:
+@functools.lru_cache(maxsize=3)
+def generator_trees(run_id: int, vocab: int) -> tuple[dict, dict]:
     """(G params, buffers) drawn by the rule with the case's seed."""
-    params, buffers, _ = templates(run_id)
+    params, buffers, _ = templates(run_id, vocab)
     seed = fw.WEIGHT_SEEDS[f"g{run_id}"]
     return seeded_tree(params, seed), {"embedding": seeded_leaf("embedding", buffers["embedding"].shape, seed)}
 
 
 @functools.lru_cache(maxsize=1)
 def discriminator_tree() -> dict:
-    return seeded_tree(templates(8)[2], fw.WEIGHT_SEEDS["d"])
+    return seeded_tree(templates(8, jax_config(8).embedding_vocab_size)[2], fw.WEIGHT_SEEDS["d"])
 
 
 def _np(x) -> np.ndarray:
@@ -79,7 +83,7 @@ def jax_outputs(name: str, res, inp: dict, cond: np.ndarray | None = None) -> di
         run_id = 0 if name == "g0" else 8
         cfg = jax_config(run_id, "bfloat16" if name == "g8_bf16" else "float32")
         gen, _ = build_models(cfg)
-        params, buffers = generator_trees(run_id)
+        params, buffers = generator_trees(run_id, cfg.embedding_vocab_size)
         kw = ({"z": jnp.asarray(inp["z"])} if "z" in inp
               else {"input_indices": jnp.asarray(inp["indices"], jnp.int32)})
         fn = jax.jit(lambda p, b, c, kw: gen.apply({"params": p, "buffers": b}, c, step=cfg.max_step, **kw))
@@ -100,8 +104,9 @@ def jax_outputs(name: str, res, inp: dict, cond: np.ndarray | None = None) -> di
     if name == "sampler":
         from gif_tpu.eval.sampling import FlameSampler
 
-        params, buffers = generator_trees(8)
-        sampler = FlameSampler(jax_config(8), res, params, buffers, batch_size=fw.BATCH,
+        cfg = jax_config(8)
+        params, buffers = generator_trees(8, cfg.embedding_vocab_size)
+        sampler = FlameSampler(cfg, res, params, buffers, batch_size=fw.BATCH,
                                max_tris_per_tile=res.n_faces)
         img, c = sampler.sample(inp["flame"], np.asarray(inp["indices"], np.int32))
         return {"image": img, "cond": fw.levels(c)}
@@ -145,7 +150,7 @@ def rule_train_state(jcfg):
     """A fresh JAX train state whose G, EMA and D hold the rule's weights."""
     from gif_tpu.train.state import TrainState, make_optimizers
 
-    g_params, buffers = generator_trees(jcfg.run_id)
+    g_params, buffers = generator_trees(jcfg.run_id, jcfg.embedding_vocab_size)
     d_params = discriminator_tree()
     as_j = functools.partial(jax.tree_util.tree_map, jnp.asarray)
     g_params, d_params, buffers = as_j(g_params), as_j(d_params), as_j(buffers)
@@ -157,35 +162,70 @@ def rule_train_state(jcfg):
         pl_mean=jnp.float32(0.0), used_samples=jnp.int32(0))
 
 
-def jax_step_outputs(name: str, res, inp: dict) -> tuple[dict, dict]:
-    """(outputs, draws) of one jitted JAX step of case ``name`` from the
-    rule-made state with ``jax.random.PRNGKey(1)``; ``draws`` are that
-    key's draws in the port's form (``jax_branch_draws``)."""
+@contextlib.contextmanager
+def rule_normals(name: str):
+    """``jax.random.normal`` answering the calls of ``gif_tpu``'s step and
+    losses, while the step of case ``name`` is traced, with the case's numpy
+    draws (:func:`full_width_goldens.rule_draws`) in the order the step
+    draws them, so the card can rebuild them; every such draw must be one
+    of them, and every one of them taken."""
+    draws = fw.rule_draws(name)
+    queue = [(k, v[0] if k in fw.PER_G_ITERATION else v) for k, v in draws.items()]
+    real = jax.random.normal
+    step_files = tuple(os.path.join("gif_tpu", "train", f) for f in ("step.py", "losses.py"))
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        if not sys._getframe(1).f_code.co_filename.endswith(step_files):
+            return real(key, shape, dtype)  # flax's shape checks of initializers
+        k, v = queue.pop(0)
+        assert tuple(shape) == v.shape, (k, shape, v.shape)
+        return jnp.asarray(v, dtype)
+
+    jax.random.normal = normal
+    try:
+        yield
+    finally:
+        jax.random.normal = real
+    assert not queue, f"{name}: draws never taken: {[k for k, _ in queue]}"
+
+
+def jax_step_outputs(name: str, res, inp: dict, compute_dtype: str | None = None) -> tuple[dict, dict]:
+    """(outputs, draws) of one jitted JAX step of case ``name`` (under
+    ``compute_dtype`` when given: a bf16 case's f32 twin) from the
+    rule-made state with ``jax.random.PRNGKey(1)``, its standard-normal
+    draws the case's rule draws (:func:`rule_normals`); ``draws`` are that
+    key's other draws in the port's form (``jax_branch_draws``)."""
     from gif_tpu.train.step import make_train_step
     from torch_port_common import jax_branch_draws
 
-    cfg = fw.step_config(name)
-    jcfg = jax_config(cfg.run_id, batch_size=cfg.batch_size, r1_interval=1)
+    run_id, over = fw.step_overrides(name)
+    if compute_dtype is not None:
+        over["compute_dtype"] = compute_dtype
+    jcfg = jax_config(run_id, **over)
     state = rule_train_state(jcfg)
-    step = make_train_step(jcfg, res, max_tris_per_tile=res.n_faces, fuse_interp=True)
-    batch = {"real_image": jnp.asarray(inp["real_image"]), "flame": jnp.asarray(inp["flame"]),
-             "indices": jnp.asarray(inp["indices"], jnp.int32)}
-    new, m = step(state, batch, jax.random.PRNGKey(1))
+    step = make_train_step(jcfg, res, max_tris_per_tile=fw.step_capacity(name, res), fuse_interp=True)
+    batch = {k: jnp.asarray(v, jnp.int32 if k in ("indices", "crop") else None) for k, v in inp.items()}
+    with rule_normals(name):
+        new, m = step(state, batch, jax.random.PRNGKey(1))
+        jax.block_until_ready(new)
     assert int(new.step) == 1 and float(m["render_overflow"]) == 0.0
-    old, new = _np_tree(state), _np_tree(new)
+    old, new_np = _np_tree(state), _np_tree(new)
+    m = {**m, "pl_mean": new.pl_mean}
 
     def delta(a, b):
         return {k: v.numpy() - a[k].numpy() for k, v in convert_params(b).items()}
 
     old_g, old_d, old_e = (convert_params(t) for t in (old.g_params, old.d_params, old.g_ema_params))
     out = {
-        "metrics": np.array([float(m[k]) if k in m else 0.0 for k in fw.STEP_METRICS], np.float32),
-        "g_grad": {k: v.numpy() for k, v in convert_params(new.g_opt_state[0].mu).items()},
-        "d_grad": {k: v.numpy() for k, v in convert_params(new.d_opt_state[0].mu).items()},
-        "g_delta": delta(old_g, new.g_params),
-        "d_delta": delta(old_d, new.d_params),
-        "ema_delta": delta(old_e, new.g_ema_params),
+        "metrics": np.array([float(m[k]) if k in m else 0.0 for k in fw.step_metrics(name)], np.float32),
+        "g_grad": {k: v.numpy() for k, v in convert_params(new_np.g_opt_state[0].mu).items()},
+        "d_grad": {k: v.numpy() for k, v in convert_params(new_np.d_opt_state[0].mu).items()},
+        "g_delta": delta(old_g, new_np.g_params),
+        "d_delta": delta(old_d, new_np.d_params),
+        "ema_delta": delta(old_e, new_np.g_ema_params),
     }
     draws = jax_branch_draws(jax.random.PRNGKey(1), jcfg, fused=True, b=jcfg.batch_size)
     keep = {k: np.asarray(draws[k]) for k in ("interp_t", "interp_identity", "interp_pairs") if k in draws}
+    if jcfg.shfld_cond_as_neg_smpl:
+        keep["shuffle_shift"] = np.asarray(draws["shuffle_shift"])
     return out, keep

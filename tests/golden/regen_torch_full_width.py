@@ -3,7 +3,8 @@ the port's full-width parity cases, summarised
 (:mod:`gif_tpu_torch.tools.full_width_goldens`).
 
 Run on CPU from the repository root (the test platform pinned by
-tests/conftest.py; ~12 min, most of it the two train steps):
+tests/conftest.py; ~36 min on 8 cores, most of it the six train steps
+and the two bf16 steps' f32 twins; each step holds 12-19 GB):
 
     JAX_PLATFORMS=cpu python tests/golden/regen_torch_full_width.py
 
@@ -50,7 +51,16 @@ def reference_entries(cases, step_cases) -> dict:
         entries.update(fw.golden_entries(case, out))
         for k, v in draws.items():
             entries[f"{case}/draws/{k}"] = np.asarray(v)
-        print(f"{case}: metrics {dict(zip(fw.STEP_METRICS, out['metrics'].tolist()))}", flush=True)
+        print(f"{case}: metrics {dict(zip(fw.step_metrics(case), out['metrics'].tolist()))}", flush=True)
+        if case in fw.BF16_STEP_CASES:
+            # gif_tpu's own bf16-vs-f32 distance: the same step in f32, its
+            # distance from the bf16 run (relative to the bf16 values, as
+            # the port's error is taken).
+            twin, _ = fj.jax_step_outputs(case, res, fw.inputs(case), compute_dtype="float32")
+            dist = fw.distances(twin, out)
+            entries.update(fw.bf16_entries(case, dist))
+            print(f"{case}: gif_tpu bf16 vs f32: " + ", ".join(
+                f"{k} {v[1]:.3g}" for k, v in dist.items()), flush=True)
     return entries
 
 
