@@ -51,6 +51,24 @@ albedo sampler in the render, the fused bias+lrelu forward and backward and
 the FIR blur and its VJP in G and D (R1's and the regularizers'
 grad-of-grad included), and under the interpolation loss the sampler again
 (the texture steal's forward) and the bilinear scatter (its backward).
+
+While a profiler records, the step marks its phases with
+:func:`gif_tpu_torch.utils.profiling.span` (off, each span is a bool
+check).  ``train.step`` is the whole call, with attributes ``step`` (the
+counter before the step) and ``r1``, and the allocator's ``cudaMalloc``
+calls and alloc retries across it; its children, in order:
+
+- ``train.render``: the fused interpolants' draws, the render, the
+  quantization and the crop / flip of the conditions;
+- ``train.g_forward``: G's forward (over 2B - 1 rows when fused), whose
+  graph G's first update reuses;
+- ``train.d_grads``: the shuffled negatives, the instance noise, D's
+  forwards, its loss, R1 on R1 steps and D's gradient;
+- ``train.d_adam``: D's all-reduce (data parallel) and Adam step;
+- per G iteration (attribute ``it``): ``train.g_grads``, G's loss through
+  the updated D, the regularizers, the interpolation penalty with its
+  steal, and G's gradient; ``train.g_adam``, the path length's running
+  mean, G's all-reduce and Adam step; ``train.ema``, the EMA update.
 """
 
 from __future__ import annotations
@@ -67,6 +85,7 @@ from gif_tpu_torch.train import losses as L
 from gif_tpu_torch.train.config import TrainConfig
 from gif_tpu_torch.utils.ema import ema_update
 from gif_tpu_torch.utils.image import resize_bilinear
+from gif_tpu_torch.utils.profiling import span
 
 
 def render_flame_maps(
@@ -299,7 +318,11 @@ def make_train_step(
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
     def train_step(state, batch, draws=None):
-        draws = draws or {}
+        do_r1 = (state.step + 1) % cfg.r1_interval == 0
+        with span("train.step", allocator=True, step=state.step, r1=do_r1):
+            return step_phases(state, batch, draws or {}, do_r1)
+
+    def step_phases(state, batch, draws, do_r1):
         real = as_tensor(batch["real_image"], torch.float32)
         indices = as_tensor(batch["indices"], torch.long)
         flame = as_tensor(batch["flame"], torch.float32)
@@ -329,35 +352,36 @@ def make_train_step(
                 f"got per-shard batch {b} — raise the global batch or "
                 "use fewer mesh devices"
             )
-        if do_fuse:
-            flm_interp = L.interpolate_flame_batch(flame, draws.get("interp_t"), rng)
-            identity = draws.get("interp_identity")
-            if identity is None:
-                identity = torch.randint(0, cfg.embedding_vocab_size, (), generator=rng)
-            interp_indices = torch.full((b - 1,), int(identity), dtype=torch.long, device=dev)
-        # One render of the data rows (from the true fit) and, fused, the
-        # interpolants; the overflow metric covers the data rows only.
-        with torch.no_grad():
-            flame_render = as_tensor(batch.get("flame_render", batch["flame"]), torch.float32)
-            rows = ([flame_render] if cfg.render_in_step else []) + (
-                [L.interp_render_flame(flm_interp)] if do_fuse else []
-            )
-            if rows:
-                maps = render_flame_maps(res, torch.cat(rows), cfg.render_image_size, max_tris_per_tile)
-            if cfg.render_in_step:
-                cond = quantize_condition(maps.textured[:b], maps.normal[:b], cfg)
-                cond = apply_condition_augment(cond, batch)
-                overflow = maps.overflow[:b]
-            else:
-                cond = as_tensor(batch["cond"], torch.float32)
-                overflow = torch.zeros((b,), dtype=torch.bool, device=dev)
+        with span("train.render"):
             if do_fuse:
-                n_data = b if cfg.render_in_step else 0
-                interp_cond = L.interp_condition_channels(
-                    maps.textured[n_data:], maps.normal[n_data:],
-                    rendered_flame_as_condition=cfg.rendered_flame_as_condition,
-                    normal_maps_as_cond=cfg.normal_maps_as_cond,
+                flm_interp = L.interpolate_flame_batch(flame, draws.get("interp_t"), rng)
+                identity = draws.get("interp_identity")
+                if identity is None:
+                    identity = torch.randint(0, cfg.embedding_vocab_size, (), generator=rng)
+                interp_indices = torch.full((b - 1,), int(identity), dtype=torch.long, device=dev)
+            # One render of the data rows (from the true fit) and, fused, the
+            # interpolants; the overflow metric covers the data rows only.
+            with torch.no_grad():
+                flame_render = as_tensor(batch.get("flame_render", batch["flame"]), torch.float32)
+                rows = ([flame_render] if cfg.render_in_step else []) + (
+                    [L.interp_render_flame(flm_interp)] if do_fuse else []
                 )
+                if rows:
+                    maps = render_flame_maps(res, torch.cat(rows), cfg.render_image_size, max_tris_per_tile)
+                if cfg.render_in_step:
+                    cond = quantize_condition(maps.textured[:b], maps.normal[:b], cfg)
+                    cond = apply_condition_augment(cond, batch)
+                    overflow = maps.overflow[:b]
+                else:
+                    cond = as_tensor(batch["cond"], torch.float32)
+                    overflow = torch.zeros((b,), dtype=torch.bool, device=dev)
+                if do_fuse:
+                    n_data = b if cfg.render_in_step else 0
+                    interp_cond = L.interp_condition_channels(
+                        maps.textured[n_data:], maps.normal[n_data:],
+                        rendered_flame_as_condition=cfg.rendered_flame_as_condition,
+                        normal_maps_as_cond=cfg.normal_maps_as_cond,
+                    )
 
         def g_forward():
             return gen(cond, input_indices=indices, step=step_idx)
@@ -365,33 +389,35 @@ def make_train_step(
         # D update.  When G trains every step, this forward is also G's
         # forward for its first update: its graph is kept.  Fused, it runs
         # over the data rows and the interpolants; D sees the data rows.
-        if do_fuse:
-            fake_live = gen(
-                torch.cat([cond, interp_cond]),
-                input_indices=torch.cat([indices, interp_indices]),
-                step=step_idx,
-            )
-            fake, fake_interp = fake_live[:b].detach(), fake_live[b:]
-        elif g_interval == 1:
-            fake_live = g_forward()
-            fake = fake_live.detach()
-        else:
-            fake_live = None
-            with torch.no_grad():
-                fake = g_forward()
-        if cfg.shfld_cond_as_neg_smpl:
-            # The same fakes under deranged conditions are extra negatives.
-            perm = L.derangement_indices(b, draws.get("shuffle_shift"), rng).to(dev)
-            d_fake, d_fake_cond = torch.cat([fake, fake]), torch.cat([cond, cond[perm]])
-        else:
-            d_fake, d_fake_cond = fake, cond
-        real_d = d_input(real, "noise_real")
-        d_fake = d_input(d_fake, "noise_fake")
-        do_r1 = (state.step + 1) % cfg.r1_interval == 0
-        d_loss, r1, d_grads = d_loss_and_grads(disc, real_d, cond, d_fake, cfg, do_r1, d_fake_cond)
-        if group is not None:
-            mean_all_reduce(d_grads, group)
-        _adam_step(state.d_opt, disc.parameters(), d_grads)
+        with span("train.g_forward"):
+            if do_fuse:
+                fake_live = gen(
+                    torch.cat([cond, interp_cond]),
+                    input_indices=torch.cat([indices, interp_indices]),
+                    step=step_idx,
+                )
+                fake, fake_interp = fake_live[:b].detach(), fake_live[b:]
+            elif g_interval == 1:
+                fake_live = g_forward()
+                fake = fake_live.detach()
+            else:
+                fake_live = None
+                with torch.no_grad():
+                    fake = g_forward()
+        with span("train.d_grads"):
+            if cfg.shfld_cond_as_neg_smpl:
+                # The same fakes under deranged conditions are extra negatives.
+                perm = L.derangement_indices(b, draws.get("shuffle_shift"), rng).to(dev)
+                d_fake, d_fake_cond = torch.cat([fake, fake]), torch.cat([cond, cond[perm]])
+            else:
+                d_fake, d_fake_cond = fake, cond
+            real_d = d_input(real, "noise_real")
+            d_fake = d_input(d_fake, "noise_fake")
+            d_loss, r1, d_grads = d_loss_and_grads(disc, real_d, cond, d_fake, cfg, do_r1, d_fake_cond)
+        with span("train.d_adam"):
+            if group is not None:
+                mean_all_reduce(d_grads, group)
+            _adam_step(state.d_opt, disc.parameters(), d_grads)
 
         # G update(s), scored by the updated D.  Unfused, each update draws
         # and renders its own interpolants.
@@ -438,18 +464,21 @@ def make_train_step(
         g_adv = rest = interp = torch.zeros((), device=dev)
         if g_interval == 1 or (state.step + 1) % g_interval == 0:
             for it in range(g_iters):
-                live, fake_live = (fake_live if fake_live is not None else g_forward()), None
-                g_adv, rest, interp, g_grads, pl_mean = g_loss_and_grads(
-                    gen, disc, live, cond, interp_fn, cfg.adaptive_interp_loss,
-                    rest_fn=lambda: rest_fn(it), d_input=lambda x: d_input(x, "noise_g", it),
-                    second_order=reg != "none",
-                )
-                del live
-                state.pl_mean = pl_mean.detach()
-                if group is not None:
-                    mean_all_reduce(g_grads, group)
-                _adam_step(state.g_opt, gen.parameters(), g_grads)
-                ema_update(state.g_ema.parameters(), gen.parameters(), cfg.ema_decay)
+                with span("train.g_grads", it=it):
+                    live, fake_live = (fake_live if fake_live is not None else g_forward()), None
+                    g_adv, rest, interp, g_grads, pl_mean = g_loss_and_grads(
+                        gen, disc, live, cond, interp_fn, cfg.adaptive_interp_loss,
+                        rest_fn=lambda: rest_fn(it), d_input=lambda x: d_input(x, "noise_g", it),
+                        second_order=reg != "none",
+                    )
+                    del live
+                with span("train.g_adam", it=it):
+                    state.pl_mean = pl_mean.detach()
+                    if group is not None:
+                        mean_all_reduce(g_grads, group)
+                    _adam_step(state.g_opt, gen.parameters(), g_grads)
+                with span("train.ema", it=it):
+                    ema_update(state.g_ema.parameters(), gen.parameters(), cfg.ema_decay)
 
         state.step += 1
         state.used_samples += b * world

@@ -1,5 +1,5 @@
-"""Profiling: ``torch.profiler`` trace capture and step timing (port of
-:mod:`gif_tpu.utils.profiling`).
+"""Profiling: ``torch.profiler`` trace capture, spans inside the program
+and step timing (port of :mod:`gif_tpu.utils.profiling`, plus the spans).
 
 ``trace`` records host and device activity for the profiler UI (a Chrome
 trace, ``chrome://tracing`` or Perfetto).  ``StepTimer`` keeps the JAX
@@ -8,15 +8,39 @@ closed by ONE readback — and on a card times the chain with CUDA events,
 so the number is the device's span from the first step's start to the
 last step's end (host launch overhead included wherever the device waits
 for it).
+
+``span(name, **attrs)`` marks a phase of the program.  Tracing is on
+exactly while a ``torch.profiler`` records (``trace``,
+``scripts/profile_step.py``, the benchmark's traced cycle); there is no
+other switch.  Off, ``span`` returns one shared null context and costs a
+bool check.  On, each span is a ``record_function`` range (a
+``user_annotation`` on the trace's clock, beside the device events), its
+host ``perf_counter`` start and end, CUDA events on the current stream at
+entry and exit where CUDA is initialized, and, with ``allocator=True``,
+the caching allocator's ``cudaMalloc`` calls and alloc retries across it.
+The records stay in memory (:func:`spans`, the newest
+:data:`SPAN_LIMIT`) until :func:`clear_spans`; each names its enclosing
+span and shares a ``step_id`` with the other spans under one outermost
+span.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
+from dataclasses import dataclass, field
 
 import torch
+
+SPAN_LIMIT = 1 << 16
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_LIMIT)
+_OFF = contextlib.nullcontext()
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+_ROOTS = itertools.count()
 
 
 @contextlib.contextmanager
@@ -34,6 +58,98 @@ def trace(log_dir: str, device: str = "cuda"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@dataclass
+class Span:
+    """One span's record.  ``parent`` is the enclosing span's name (None
+    for an outermost span), ``step_id`` the outermost span's number;
+    ``events`` the CUDA events at entry and exit (None without CUDA);
+    ``counters`` the allocator's counts across the span, where asked."""
+
+    name: str
+    attrs: dict
+    parent: str | None
+    step_id: int
+    host_start: float = 0.0
+    host_end: float = 0.0
+    events: tuple | None = None
+    counters: dict = field(default_factory=dict)
+
+    @property
+    def device_ms(self) -> float | None:
+        """Device time between the entry and exit events (waits for the
+        exit event); None without CUDA."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+def _allocator_counts() -> tuple[int, int]:
+    stats = torch.cuda.memory_stats()
+    return stats.get("segment.all.allocated", 0), stats.get("num_alloc_retries", 0)
+
+
+class _Recording:
+    """The live form of a span: see :func:`span`."""
+
+    def __init__(self, name: str, attrs: dict, allocator: bool):
+        self.name, self.attrs, self.allocator = name, attrs, allocator
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        parent = stack[-1] if stack else None
+        rec = Span(self.name, self.attrs, parent.name if parent else None,
+                   parent.step_id if parent else next(_ROOTS))
+        self.rec, self.cuda = rec, torch.cuda.is_initialized()
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        if self.cuda:
+            if self.allocator:
+                self.counts = _allocator_counts()
+            rec.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        stack.append(rec)
+        _SPANS.append(rec)
+        rec.host_start = time.perf_counter()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.host_end = time.perf_counter()
+        _OPEN.stack.pop()
+        if self.cuda:
+            rec.events[1].record()
+            if self.allocator:
+                mallocs, retries = _allocator_counts()
+                rec.counters = {"cuda_mallocs": mallocs - self.counts[0],
+                                "num_alloc_retries": retries - self.counts[1]}
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, allocator: bool = False, **attrs):
+    """A context manager that marks the block as the span ``name`` with
+    ``attrs`` while a profiler records, and does nothing otherwise (the
+    shared null context).  ``allocator`` adds the caching allocator's
+    ``cudaMalloc`` calls (``segment.all.allocated``) and alloc retries
+    across the block to the record's ``counters``, on a card."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Recording(name, attrs, allocator)
+
+
+def spans() -> list:
+    """The recorded spans, oldest first, in the order they opened."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
 
 
 def _first_tensor(tree):
