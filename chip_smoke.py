@@ -427,23 +427,26 @@ def _dtype(t) -> str:
 
 def _signature(kind: str, args) -> tuple:
     """What a launch's cost depends on besides its data: shapes, dtype,
-    taps, pads."""
+    taps, pads, and for kernels 3-5 the map's memory format."""
+    from gif_tpu_torch.ops import layout
+
     if kind == "raster":
         return (tuple(args[0].shape),) + tuple(args[2:6])
     if kind in ("sampler", "scatter"):
         return tuple(args[0].shape), tuple(args[1].shape)
+    fmt = "channels_last" if layout.is_channels_last(args[0]) else "nchw"
     if kind in ("flr", "flr_bwd"):
-        return tuple(args[0].shape), _dtype(args[0])
-    return tuple(args[0].shape), _dtype(args[0]), tuple(args[1]), tuple(args[2])
+        return tuple(args[0].shape), _dtype(args[0]), fmt
+    return tuple(args[0].shape), _dtype(args[0]), tuple(args[1]), tuple(args[2]), fmt
 
 
 def _label(kind: str, sig: tuple) -> tuple:
     """A signature without its taps, for the logs."""
     if kind in ("blur", "blur_vjp"):
-        return sig[0], sig[1], sig[3]
+        return sig[0], sig[1], sig[3], sig[4]
     if kind == "raster":
         return sig[0], f"cap {sig[4]}"
-    return sig[:2]
+    return sig if kind in ("flr", "flr_bwd") else sig[:2]
 
 
 def check_raster(args, out) -> dict:
@@ -505,6 +508,8 @@ class LaunchRecorder:
     such launch's inputs}``; ``stats[kind]`` holds the largest errors."""
 
     def __enter__(self):
+        import torch
+
         from gif_tpu_torch.ops import activations, blur_cuda
         from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
 
@@ -512,14 +517,16 @@ class LaunchRecorder:
         self.stats = {k: {} for k in KERNELS}
         self.saved = []
         # The incoming gradients of blur VJPs that Blur4Function.backward
-        # must copy to contiguous first (cuDNN hands some back
-        # channels-last): (shape, stride, dtype) -> count.
+        # must copy to the memory format of the map it differentiates
+        # first (cuDNN hands some back in the other one): (shape, stride,
+        # dtype, that format is channels-last) -> count.
         self.vjp_copies = {}
         orig_bwd = blur_cuda.Blur4Function.__dict__["backward"]
 
         def backward(ctx, g):
-            if not g.is_contiguous():
-                key = (tuple(g.shape), tuple(g.stride()), g.dtype)
+            fmt = torch.channels_last if ctx.channels_last else torch.contiguous_format
+            if g.is_cuda and not g.is_contiguous(memory_format=fmt):
+                key = (tuple(g.shape), tuple(g.stride()), g.dtype, ctx.channels_last)
                 self.vjp_copies[key] = self.vjp_copies.get(key, 0) + 1
             return orig_bwd.__func__(ctx, g)
 
@@ -776,21 +783,24 @@ def time_round(groups: dict, stats: dict, per: str) -> dict:
 
 
 def time_vjp_copies(copies: dict, what: str) -> dict:
-    """Device time of the ``g.contiguous()`` copies Blur4Function.backward
-    made in front of kernel 4's VJP launches of one recorded step: each
-    (shape, stride, dtype) timed once on a tensor of that layout, times its
+    """Device time of the gradient copies Blur4Function.backward made in
+    front of kernel 4's VJP launches of one recorded step, each into the
+    memory format of the map it differentiates: each (shape, stride,
+    dtype, format) timed once on a tensor of that layout, times its
     count."""
     import torch
 
     total_ms, n, layouts = 0.0, 0, {}
-    for (shape, stride, dtype), k in copies.items():
+    for (shape, stride, dtype, cl), k in copies.items():
         src = torch.empty_strided(shape, stride, dtype=dtype, device="cuda").normal_()
-        total_ms += k * queued_ms(lambda: src.contiguous())
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        total_ms += k * queued_ms(lambda: src.contiguous(memory_format=fmt))
         n += k
         layout = "channels_last" if src.is_contiguous(memory_format=torch.channels_last) else "other"
-        layouts[layout] = layouts.get(layout, 0) + k
-    log(f"blur VJP gradient copies ({what}): {n} of the step's VJP launches got a non-contiguous gradient "
-        f"{layouts}; their .contiguous() copies take {total_ms:.4f} ms of device time (queued CUDA events, "
+        key = f"{layout} to {'channels_last' if cl else 'contiguous'}"
+        layouts[key] = layouts.get(key, 0) + k
+    log(f"blur VJP gradient copies ({what}): {n} of the step's VJP launches got a gradient in another format "
+        f"than their map {layouts}; the copies take {total_ms:.4f} ms of device time (queued CUDA events, "
         f"{len(copies)} distinct layouts)")
     return {"g_copies_per_step": n, "g_copy_ms_per_step": total_ms, "g_copy_layouts": layouts}
 
@@ -1056,7 +1066,8 @@ def check_r1_narrow(counters):
     got = r1_param_grads(d32, real, cond)
     torch.cuda.synchronize()
     used = {k: fn.launches - prev[k] for k, fn in counters.items()}
-    assert all(used[k] > 0 for k in ("fused_bias_lrelu", "fused_bias_lrelu_bwd", "fir_blur", "fir_blur_vjp")), used
+    # D runs channels-last: its launches are the channels-last variants'.
+    assert all(used[k + "_cl"] > 0 for k in ("fused_bias_lrelu", "fused_bias_lrelu_bwd", "fir_blur", "fir_blur_vjp")), used
     with plain_kernels():
         want = r1_param_grads(d32, real, cond)
     err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item() for a, b in zip(got, want))
@@ -1980,7 +1991,9 @@ DP_GRAD_RTOL = 3e-2
 
 
 def kernel_counters() -> dict:
-    """Every kernel wrapper by its counter name (each counts its launches)."""
+    """Every kernel wrapper by its counter name (each counts its launches;
+    kernels 3-5 on NCHW maps, the generator's, and apart on channels-last
+    ones, the discriminator's)."""
     from gif_tpu_torch.ops import activations, blur_cuda
     from gif_tpu_torch.render import raster_cuda, sampler_cuda, scatter_cuda
 
@@ -1992,6 +2005,10 @@ def kernel_counters() -> dict:
         "fir_blur": blur_cuda.blur4,
         "fir_blur_vjp": blur_cuda.blur4_vjp,
         "bilinear_scatter": scatter_cuda.scatter_bilinear,
+        "fused_bias_lrelu_cl": activations.fused_leaky_relu_cl,
+        "fused_bias_lrelu_bwd_cl": activations.fused_leaky_relu_backward_cl,
+        "fir_blur_cl": blur_cuda.blur4_cl,
+        "fir_blur_vjp_cl": blur_cuda.blur4_vjp_cl,
     }
 
 
@@ -2861,7 +2878,11 @@ def resample_modes(res, counters: dict, smi: str):
             for i, dt, m, _ in steps:
                 assert all(np.isfinite(v) for v in m.values()) and (m["r1"] > 0) == (i == 15), (mode, i, m)
             assert all(v > 0 for v in moved.values()), (mode, moved)
-            assert all(launches[mode][KERNELS[k]["name"]] > 0 for k in RUN8_KERNELS), (mode, launches[mode])
+            # D's launches count apart, on the channels-last counters (the
+            # phase mode's G launches no kernel 4).
+            ran = [launches[mode][KERNELS[k]["name"]] + launches[mode].get(KERNELS[k]["name"] + "_cl", 0)
+                   for k in RUN8_KERNELS]
+            assert all(n > 0 for n in ran), (mode, launches[mode])
             out[mode] = ((images - exact).abs().max().item(), m0)
             log(f"phase resample {mode}: counted steps 13-15 at batch {TRAIN_BATCH}, peak memory "
                 f"{peak / 2**30:.2f} GiB; launches {launches[mode]}")

@@ -1,4 +1,5 @@
-// Separable 4-tap FIR blur with static zero pads (forward), NCHW planes.
+// Separable 4-tap FIR blur with static zero pads (forward), on NCHW planes
+// (gif_blur4_forward) or on channels-last maps (gif_blur4_forward_nhwc).
 //
 // Replaces the TPU kernel gif_tpu/ops/blur_pallas.py::_blur_slab_kernel
 // (called through _blur4_fwd_impl / blur4_pallas).  out[y, x] =
@@ -39,6 +40,27 @@
 //   shared memory with coalesced loads, then writes its outputs in order.
 //   Strips there would give each warp instruction 32 planes' scattered
 //   addresses.
+//
+// Channels-last maps (blur4_nhwc): x is (N, Hin, Win, C) in memory and
+// out (N, Ho, Wo, C), channels fastest — the discriminator's layout.  The
+// bound is the same bytes: each input read once, each output written once.
+// C is contiguous, so a thread owns V channels, 16 bytes (V = 8 in bf16, 4
+// in f32; V = 1 where C is not a multiple of that or a base is off the
+// 16-byte grid), of one output row, and walks a strip of `cols` output
+// columns along x: at each input column it reads the four input rows of its
+// output row as four 16-byte loads (the next column's loads in flight
+// before this column is used), forms the vertical sums, and carries the
+// horizontal pass in three running partial sums, storing one 16-byte
+// vector per output column.  No shared memory, no synchronisation, V x 3
+// partials in registers.  Lanes take consecutive channel groups of one
+// pixel (a warp moves up to 512 contiguous bytes, whole sectors at the
+// discriminator's 128-512 channels), and a CTA's warps take consecutive
+// output rows of the same channels and column strip, so each input row a
+// thread reads is read by up to three neighbours in the CTA too: it comes
+// from device memory about once, the 3-row halo between CTAs and the
+// 3-column halo between strips (3 / cols) from L2.
+// (ops/blur_cuda.py::blur4_nhwc_geometry picks V, the channel blocks and
+// the strip length, which shrinks on small maps to keep the card full.)
 //
 // Arithmetic uses explicitly rounded intrinsics in the plain version's
 // order (t0*a + t1*b + t2*c + t3*d, left to right; vertical pass first),
@@ -437,6 +459,135 @@ int launch(const void* x, void* out, int mode, const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// V channels at one (y, x) of a channels-last map: held as the loaded words
+// (Raw) until used, unpacked to floats, packed and stored.
+template <typename T, int V> struct VecIO;
+template <> struct VecIO<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[2 * k] = __uint_as_float(w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                                              pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  }
+};
+template <> struct VecIO<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <typename T> struct VecIO<T, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const T* p) { return load_f(p); }
+  static __device__ __forceinline__ Raw zero() { return 0.f; }
+  static __device__ __forceinline__ void unpack(const Raw& r, float* f) { f[0] = r; }
+  static __device__ __forceinline__ void store(T* p, const float* f) { store_f(p, f[0]); }
+};
+
+// Threads are laid out channel group within its block fastest (cb groups
+// of V channels), then output row, then channel block, then column strip,
+// then image (ops/blur_cuda.py::blur4_nhwc_thread_tiles mirrors it).
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+blur4_nhwc(const T* __restrict__ x, T* __restrict__ out, unsigned n_threads,
+           int cb, int cblocks, int col_strips, int cols, int Hin, int Win,
+           int Ho, int Wo, int C, int p0y, int p0x, float t0, float t1,
+           float t2, float t3) {
+  using IO = VecIO<T, V>;
+  const unsigned t = blockIdx.x * THREADS + threadIdx.x;
+  if (t >= n_threads) return;  // no warp-wide operations below
+  unsigned r = t / cb;
+  const int lane_cg = t % cb;
+  const int oy = r % Ho;
+  r /= Ho;
+  const int blk = r % cblocks;
+  r /= cblocks;
+  const int ox0 = (r % col_strips) * cols;
+  const size_t n = r / col_strips;
+  const int c0 = (blk * cb + lane_cg) * V;
+  const int nin = min(cols, Wo - ox0) + 3;  // input columns of the strip
+  const int gx0 = ox0 - p0x;
+  const size_t row = static_cast<size_t>(Win) * C;
+  const T* img = x + n * Hin * row + c0;
+  const T* rows[4];
+  bool rv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gy = oy - p0y + i;
+    rv[i] = gy >= 0 && gy < Hin;
+    rows[i] = img + (rv[i] ? gy : 0) * row;
+  }
+  T* o = out + (n * Ho + oy) * static_cast<size_t>(Wo) * C + static_cast<size_t>(ox0) * C + c0;
+
+  typename IO::Raw cur[4], nxt[4];
+  auto load_col = [&](int k, typename IO::Raw* dst) {
+    const int gx = gx0 + k;
+    const bool cv = gx >= 0 && gx < Win;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dst[i] = (rv[i] && cv) ? IO::load(rows[i] + static_cast<ptrdiff_t>(gx) * C) : IO::zero();
+    }
+  };
+  load_col(0, cur);
+  float b0[V], b1[V], b2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) b0[e] = b1[e] = b2[e] = 0.f;
+  for (int k = 0; k < nin; ++k) {
+    if (k + 1 < nin) load_col(k + 1, nxt);
+    float a[4][V], v[V];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) IO::unpack(cur[i], a[i]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = tap4(t0, t1, t2, t3, a[0][e], a[1][e], a[2][e], a[3][e]);
+    // Column k completes output column ox0 + k - 3 (b2 holds its first
+    // three terms), then moves the partial sums along, as accumulate()
+    // moves them down a strip.
+    if (k >= 3) {
+      float res[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) res[e] = __fadd_rn(b2[e], __fmul_rn(t3, v[e]));
+      IO::store(o + static_cast<size_t>(k - 3) * C, res);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      b2[e] = __fadd_rn(b1[e], __fmul_rn(t2, v[e]));
+      b1[e] = __fadd_rn(b0[e], __fmul_rn(t1, v[e]));
+      b0[e] = __fmul_rn(t0, v[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+  }
+}
+
+template <typename T, int V>
+int launch_nhwc(const void* x, void* out, int blocks, unsigned n, int cb,
+                int cblocks, int col_strips, int cols, int Hin, int Win, int Ho,
+                int Wo, int C, int p0y, int p0x, float t0, float t1, float t2,
+                float t3, cudaStream_t s) {
+  blur4_nhwc<T, V><<<blocks, THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, cb, cblocks,
+      col_strips, cols, Hin, Win, Ho, Wo, C, p0y, p0x, t0, t1, t2, t3);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // mode 0: strips with scalar loads; 1: strips with 16-byte loads (rows
@@ -456,4 +607,37 @@ extern "C" int gif_blur4_forward(const void* x, void* out, int mode, int blocks,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(x, out, mode, a, s)
                  : launch<float>(x, out, mode, a, s);
+}
+
+// Channels-last maps.  blocks, n (threads), cb (channel groups a block),
+// cblocks, col_strips and cols (output columns a thread) come from
+// ops/blur_cuda.py::blur4_nhwc_geometry; vec: channels a thread, 8 (bf16)
+// or 4 (f32) for 16-byte access (C a multiple of it, 16-byte aligned
+// bases), else 1.
+extern "C" int gif_blur4_forward_nhwc(const void* x, void* out, int blocks,
+                                      int n, int cb, int cblocks,
+                                      int col_strips, int cols, int Hin,
+                                      int Win, int Ho, int Wo, int C, int p0y,
+                                      int p0x, int is_bf16, int vec, float t0,
+                                      float t1, float t2, float t3,
+                                      void* stream) {
+  if (p0x < 0 || p0x > 3 || p0y < 0 || p0y > 3 || blocks <= 0 || n <= 0 ||
+      cb <= 0 || cblocks <= 0 || col_strips <= 0 || cols <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned nt = static_cast<unsigned>(n);
+  if (is_bf16 && vec == 8) {
+    return launch_nhwc<__nv_bfloat16, 8>(x, out, blocks, nt, cb, cblocks, col_strips, cols, Hin, Win,
+                                         Ho, Wo, C, p0y, p0x, t0, t1, t2, t3, s);
+  }
+  if (!is_bf16 && vec == 4) {
+    return launch_nhwc<float, 4>(x, out, blocks, nt, cb, cblocks, col_strips, cols, Hin, Win, Ho, Wo,
+                                 C, p0y, p0x, t0, t1, t2, t3, s);
+  }
+  if (vec != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_nhwc<__nv_bfloat16, 1>(x, out, blocks, nt, cb, cblocks, col_strips, cols, Hin,
+                                                 Win, Ho, Wo, C, p0y, p0x, t0, t1, t2, t3, s)
+                 : launch_nhwc<float, 1>(x, out, blocks, nt, cb, cblocks, col_strips, cols, Hin, Win,
+                                         Ho, Wo, C, p0y, p0x, t0, t1, t2, t3, s);
 }

@@ -4,7 +4,11 @@
 The input is ``concat(image, condition)`` along channels (9 channels for
 run_id 8), a 1x1 ``from_rgb`` ConvLayer, ``log2(size) - 2`` ResBlocks down
 to 4x4 in the compute dtype, then a head in f32: minibatch stddev, a 3x3
-``final_conv``, and a two-layer equalized MLP to one score.  Module names
+``final_conv``, and a two-layer equalized MLP to one score.  Every map
+from ``from_rgb`` to the head is channels-last (NCHW-shaped, NHWC strides;
+:mod:`gif_tpu_torch.ops.layout`), forward and backward to any order, so
+cuDNN convolves it on its NHWC kernels without layout conversions and
+kernels 3-5 take it natively.  Module names
 follow the flax tree, so :mod:`gif_tpu_torch.tools.convert_params` maps it
 one to one.  ``final_dense`` reads the 4x4 map flattened in H, W, C order,
 as the NHWC reference does, so its weight converts unchanged.
@@ -80,7 +84,9 @@ class Discriminator(nn.Module):
         """image: (B, S, S, 3); condition: (B, S, S, C_cond) or None.
         Returns (B, 1) f32 scores."""
         x = image if condition is None else torch.cat([image, condition], dim=-1)
-        x = self.from_rgb(x.permute(0, 3, 1, 2).contiguous())
+        # The NHWC input seen as a channels-last NCHW map: a view of the
+        # concatenation (a copy only of an input that is not NHWC-dense).
+        x = self.from_rgb(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
         for i in range(self.log_size, 2, -1):
             x = getattr(self, f"res{i}")(x)
         # The head runs in f32 (stddev statistics and the score MLP are tiny).

@@ -1,5 +1,6 @@
 """The StyleGAN2 op set of the generator and the discriminator (port of
-``gif_tpu.ops``), NCHW.
+``gif_tpu.ops``), on NCHW-shaped maps: NCHW-contiguous in the generator,
+channels-last in the discriminator (``ops.layout``).
 
 Kernels: ``activations.fused_leaky_relu`` (kernel 3 forward, kernel 5
 backward, Triton) and ``blur_cuda.blur4`` (kernel 4 and its VJP, CUDA

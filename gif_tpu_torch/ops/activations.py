@@ -5,15 +5,23 @@ Port of :mod:`gif_tpu.ops.activations` ``fused_leaky_relu``; replaces the
 TPU kernels ``gif_tpu/ops/activations.py::_flr_fwd_kernel`` (kernel 3) and
 ``::_flr_bwd_kernel`` (kernel 5), both reached through
 ``_pallas_rows_call`` / ``fused_leaky_relu(use_pallas=True)`` and its
-``custom_vjp``.  The port keeps NCHW inside the networks, so the
-per-channel bias runs along dim 1.
+``custom_vjp``.  The per-channel bias runs along dim 1 of NCHW-shaped
+maps, which come in two memory formats (:mod:`gif_tpu_torch.ops.layout`):
+NCHW-contiguous (the generator's), where an element's channel is
+``(offset // HW) % C``, and channels-last (the discriminator's), where it
+is ``offset % C``: the same kernel with ``HW = 1``, chosen by the input's
+own strides; the output keeps the input's format.  Forward and backward
+launches are counted apart, and so are the two formats
+(``fused_leaky_relu.launches`` / ``fused_leaky_relu_cl.launches``, the
+same for ``fused_leaky_relu_backward``).
 
 What bounds both on the H100: memory.  The forward reads x and writes y
 (~4 flops an element); the backward reads x and g and writes dx (3 x
 itemsize bytes an element).  Each kernel is one elementwise pass (bf16 or
 f32 in and out, f32 math), each program a contiguous block of ``_BLOCK``
 elements so loads and stores coalesce; the bias (<= 512 floats) stays in
-L1/L2.
+L1/L2.  A channels-last map is one contiguous run of storage as well, so
+it takes the same single pass.
 
 Gradients, as the JAX ``custom_vjp`` defines them (``activations.py:124-143``):
 ``dx = g * sqrt2 * (x + b >= 0 ? 1 : 0.2)`` and ``db = sum(dx)`` over N, H
@@ -28,8 +36,11 @@ from __future__ import annotations
 
 import functools
 import math
+import types
 
 import torch
+
+from gif_tpu_torch.ops import layout
 
 _NEG_SLOPE = 0.2
 _SCALE = math.sqrt(2.0)
@@ -102,28 +113,31 @@ def _check(x: torch.Tensor, bias: torch.Tensor) -> None:
         raise ValueError(f"bias {tuple(bias.shape)} does not match x {tuple(x.shape)} on dim 1")
 
 
-def _grid_args(x: torch.Tensor):
+def _grid_args(x: torch.Tensor, channels_last: bool):
+    """(grid, elements, the run of storage one channel index covers): the
+    map's H x W on NCHW storage, 1 on channels-last storage."""
     n = x.numel()
-    hw = n // (x.shape[0] * x.shape[1]) if n else 1
+    hw = n // (x.shape[0] * x.shape[1]) if n and not channels_last else 1
     return (-(-n // _BLOCK),), n, hw
 
 
 def fused_leaky_relu_triton(
     x: torch.Tensor, bias: torch.Tensor, negative_slope: float = _NEG_SLOPE, scale: float = _SCALE
 ) -> torch.Tensor:
-    """Launch kernel 3 (CUDA tensors only)."""
+    """Launch kernel 3 (CUDA tensors only) in ``x``'s memory format."""
     _check(x, bias)
-    x = x.contiguous()
+    cl = layout.is_channels_last(x)
+    x = layout.dense(x, cl)
     b = bias.float().contiguous()
     out = torch.empty_like(x)
-    grid, n, hw = _grid_args(x)
+    grid, n, hw = _grid_args(x, cl)
     # Triton raises on a refused launch, the counterpart of the CUDA
     # wrappers' cudaGetLastError check.
     _triton_kernels()[0][grid](
         x, b, out, n, hw, x.shape[1], float(negative_slope), float(scale),
         BLOCK=_BLOCK, num_warps=4,
     )
-    fused_leaky_relu.launches += 1
+    (fused_leaky_relu_cl if cl else fused_leaky_relu).launches += 1
     return out
 
 
@@ -131,21 +145,23 @@ def fused_leaky_relu_backward_triton(
     x: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
     negative_slope: float = _NEG_SLOPE, scale: float = _SCALE,
 ) -> torch.Tensor:
-    """Launch kernel 5 (CUDA tensors only): dx in ``x``'s dtype."""
+    """Launch kernel 5 (CUDA tensors only): dx in ``x``'s dtype and memory
+    format."""
     _check(x, bias)
     if g.shape != x.shape:
         raise ValueError(f"gradient {tuple(g.shape)} does not match x {tuple(x.shape)}")
-    x = x.contiguous()
-    # cuDNN's conv backward may hand the gradient back channels-last.
-    g = g.contiguous()
+    cl = layout.is_channels_last(x)
+    x = layout.dense(x, cl)
+    # cuDNN's conv backward may hand the gradient back in the other format.
+    g = layout.dense(g, cl)
     b = bias.float().contiguous()
     out = torch.empty_like(x)
-    grid, n, hw = _grid_args(x)
+    grid, n, hw = _grid_args(x, cl)
     _triton_kernels()[1][grid](
         x, b, g, out, n, hw, x.shape[1], float(scale), float(scale * negative_slope),
         BLOCK=_BLOCK, num_warps=4,
     )
-    fused_leaky_relu_backward.launches += 1
+    (fused_leaky_relu_backward_cl if cl else fused_leaky_relu_backward).launches += 1
     return out
 
 
@@ -211,3 +227,6 @@ def fused_leaky_relu(
 
 fused_leaky_relu.launches = 0
 fused_leaky_relu_backward.launches = 0
+# The launch counters of the channels-last variants.
+fused_leaky_relu_cl = types.SimpleNamespace(launches=0)
+fused_leaky_relu_backward_cl = types.SimpleNamespace(launches=0)

@@ -4,12 +4,15 @@ Replaces the TPU kernel ``gif_tpu/ops/blur_pallas.py::_blur_slab_kernel``
 (reached through ``_blur4_fwd_impl`` / ``blur4_pallas`` and its
 ``custom_vjp``).  The CUDA source is ``gif_tpu_torch/csrc/blur.cu``; its
 header says what bounds it on the H100 (memory) and how the design meets
-that (both passes fused, the pads never materialized; maps up to 24 px
-staged whole, several planes a CTA, in shared memory; larger maps in
-register-tiled strips of 8 columns by 8 or 16 rows, 16-byte row loads with
-the halo from neighbour lanes where the rows are aligned;
-:func:`blur4_launch_geometry` picks the path and the grid from the map's
-size).  Call sites: the upsampling modulated
+that (both passes fused, the pads never materialized; NCHW maps up to 24
+px staged whole, several planes a CTA, in shared memory; larger NCHW maps
+in register-tiled strips of 8 columns by 8 or 16 rows, 16-byte row loads
+with the halo from neighbour lanes where the rows are aligned,
+:func:`blur4_launch_geometry` picking the path and the grid from the map's
+size; channels-last maps, the discriminator's, by a thread per 16 bytes of
+channels walking a strip of one output row, :func:`blur4_nhwc_geometry`).
+:func:`blur4_cuda` takes the input's own memory format
+(:mod:`gif_tpu_torch.ops.layout`) and the output keeps it.  Call sites: the upsampling modulated
 conv (``ops/conv.py``: gain 4, pads (1, 1) on the odd ``2H+1``
 transposed-conv outputs) and the discriminator's down-blurs
 (``models/layers.py`` ``ConvLayer``: pads (2, 2) before a 3x3 and (1, 1)
@@ -20,8 +23,11 @@ with the taps reversed and each pad ``p`` replaced by ``3 - p`` (the
 full-correlation transpose).  :class:`Blur4Function` expresses that VJP
 through itself, so every differentiation order stays inside the rule — R1
 takes grad-of-grad through the discriminator's blurs — as
-``blur_pallas.py:241-252`` does for JAX.  Forward and VJP launches are
-counted apart (``blur4.launches``, ``blur4_vjp.launches``).
+``blur_pallas.py:241-252`` does for JAX; a VJP takes its gradient in the
+memory format of the map it differentiates.  Forward and VJP launches are
+counted apart, and so are the two formats (``blur4.launches``,
+``blur4_vjp.launches`` for NCHW maps; ``blur4_cl.launches``,
+``blur4_vjp_cl.launches`` for channels-last ones).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from gif_tpu_torch import kernels
+from gif_tpu_torch.ops import layout
 
 
 @functools.cache
@@ -111,18 +118,63 @@ def blur4_thread_tiles(geom: dict, t: np.ndarray):
     return strip // geom["row_strips"], (strip % geom["row_strips"]) * geom["rows"], cg * BLUR_COLS
 
 
+# Kernel 4's channels-last geometry (csrc/blur.cu, blur4_nhwc): a thread
+# owns ``vec`` channels of one output row and a strip of ``cols`` output
+# columns; the strip is the longest of NHWC_COLS that still gives
+# NHWC_THREADS threads (about four waves of the H100's 132 SMs at two
+# 256-thread CTAs each), so small maps keep the card full.
+NHWC_COLS = (16, 8, 4, 2, 1)
+NHWC_THREADS = 1 << 18
+
+
+@functools.cache
+def blur4_nhwc_geometry(n: int, c: int, ho: int, wo: int, vec: int) -> dict:
+    """Kernel 4's launch geometry for a channels-last (n, c, ho, wo) output
+    with ``vec`` channels a thread (``c`` a multiple of it): ``cb`` channel
+    groups a block (the largest divisor of c / vec up to a warp's 32 lanes),
+    ``cblocks`` blocks, ``cols`` output columns a thread in ``col_strips``
+    strips, ``threads`` and ``blocks`` (CTAs).  Cached: the main path
+    launches the same few shapes every step (callers do not mutate it)."""
+    groups = c // vec
+    cb = max(d for d in range(1, 33) if groups % d == 0)
+    for cols in NHWC_COLS:
+        col_strips = -(-wo // cols)
+        threads = n * ho * groups * col_strips
+        if threads >= NHWC_THREADS:
+            break
+    return dict(vec=vec, cb=cb, cblocks=groups // cb, ho=ho, cols=cols, col_strips=col_strips, threads=threads,
+                blocks=-(-threads // BLUR_THREADS))
+
+
+def blur4_nhwc_thread_tiles(geom: dict, t: np.ndarray):
+    """The channels-last kernel's mapping of global thread indices ``t`` to
+    (image, output row, first channel, first output column);
+    ``csrc/blur.cu`` computes the same."""
+    cg = t % geom["cb"]
+    r = t // geom["cb"]
+    oy = r % geom["ho"]
+    r = r // geom["ho"]
+    blk = r % geom["cblocks"]
+    r = r // geom["cblocks"]
+    return r // geom["col_strips"], oy, (blk * geom["cb"] + cg) * geom["vec"], (r % geom["col_strips"]) * geom["cols"]
+
+
 def blur4_cuda(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA bf16 / f32 NCHW tensors only); the
-    caller counts the launch."""
+    """Launch the CUDA kernel (CUDA bf16 / f32 4-D tensors only) in ``x``'s
+    memory format: NCHW planes, or a channels-last map; the output keeps it.
+    The caller counts the launch."""
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4:
         raise ValueError(f"blur kernel takes 4-D bf16/f32, got {x.dtype} {tuple(x.shape)}")
     if len(taps) != 4 or min(pads) < 0 or max(pads) > 3:
         raise ValueError(f"blur kernel takes 4 taps and pads in [0, 3], got {taps} {pads}")
-    x = x.contiguous()
+    cl = layout.is_channels_last(x)
+    x = layout.dense(x, cl)
     n, c, h, w = x.shape
     ho, wo = _out_shape(x, pads)
     if min(n * c, ho, wo) <= 0 or max(x.numel(), n * c * ho * wo) >= 2**31:
         raise ValueError(f"blur kernel takes a non-empty output and 32-bit indices, got {tuple(x.shape)} {pads}")
+    if cl:
+        return _blur4_nhwc(x, taps, pads, ho, wo)
     out = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     g = blur4_launch_geometry(n * c, ho, wo)
     if g["mode"] == "planes":
@@ -146,30 +198,58 @@ def blur4_cuda(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
     return out
 
 
+def _blur4_nhwc(x: torch.Tensor, taps: tuple, pads: tuple, ho: int, wo: int) -> torch.Tensor:
+    """The channels-last launch of :func:`blur4_cuda` (``x`` dense NHWC)."""
+    n, c, h, w = x.shape
+    out = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
+    vec = 16 // x.element_size()
+    if c % vec or x.data_ptr() % 16 or out.data_ptr() % 16:
+        vec = 1
+    g = blur4_nhwc_geometry(n, c, ho, wo, vec)
+    if g["threads"] >= 2**31:
+        raise ValueError(f"blur kernel indexes threads in 32 bits, got {g['threads']}")
+    fn = kernels.function("gif_blur4_forward_nhwc", 2, 15, 4)
+    err = fn(
+        x.data_ptr(), out.data_ptr(), g["blocks"], g["threads"], g["cb"], g["cblocks"], g["col_strips"], g["cols"],
+        h, w, ho, wo, c, pads[0], pads[2], int(x.dtype == torch.bfloat16), vec, *taps, kernels.stream_ptr(x),
+    )
+    kernels.check(err, "gif_blur4_forward_nhwc")
+    return out
+
+
 def _launch(x: torch.Tensor, taps: tuple, pads: tuple, counter) -> torch.Tensor:
-    """Correlate ``x`` with ``taps``: the kernel on a CUDA tensor (counted
-    on ``counter``), the plain version on a CPU tensor."""
+    """Correlate ``x`` with ``taps``: the kernel on a CUDA tensor, counted
+    on ``counter`` (``blur4`` or ``blur4_vjp``) for NCHW planes and on its
+    channels-last twin for a channels-last map; the plain version on a CPU
+    tensor."""
     if not x.is_cuda:
         return blur4_plain(x, taps, pads)
+    cl = layout.is_channels_last(x)
     out = blur4_cuda(x, taps, pads)
+    if cl:
+        counter = blur4_cl if counter is blur4 else blur4_vjp_cl
     counter.launches += 1
     return out
 
 
 class Blur4Function(torch.autograd.Function):
-    """Correlation of NCHW ``x`` with ``taps`` under ``pads``; the VJP is
-    this Function again (taps reversed, pads ``3 - p``), counted on
+    """Correlation of ``x`` (NCHW-shaped, either memory format) with
+    ``taps`` under ``pads``; the VJP is this Function again (taps reversed,
+    pads ``3 - p``) on the gradient in ``x``'s format, counted on
     ``blur4_vjp``."""
 
     @staticmethod
     def forward(ctx, x, taps, pads, counter):
         ctx.taps, ctx.pads = taps, pads
+        ctx.channels_last = layout.is_channels_last(x)
         return _launch(x, taps, pads, counter)
 
     @staticmethod
     def backward(ctx, g):
         tpads = tuple(3 - p for p in ctx.pads)
-        return Blur4Function.apply(g.contiguous(), ctx.taps[::-1], tpads, blur4_vjp), None, None, None
+        if g.is_cuda:
+            g = layout.dense(g, ctx.channels_last)
+        return Blur4Function.apply(g, ctx.taps[::-1], tpads, blur4_vjp), None, None, None
 
 
 def blur4(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
@@ -186,3 +266,6 @@ def blur4(x: torch.Tensor, taps: tuple, pads: tuple) -> torch.Tensor:
 # ``blur4.launches``).
 blur4_vjp = types.SimpleNamespace(launches=0)
 blur4.launches = 0
+# The same two counters for launches on channels-last maps.
+blur4_cl = types.SimpleNamespace(launches=0)
+blur4_vjp_cl = types.SimpleNamespace(launches=0)

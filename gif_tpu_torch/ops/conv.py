@@ -11,6 +11,14 @@ channels, so both commute with the convolution:
 and the port keeps the reference's batch-shared form — the activations are
 scaled and ONE shared-weight convolution serves the whole batch (no
 batch-as-groups).  Demodulation is computed in f32.
+
+``equal_conv2d`` (the discriminator's convolutions) differentiates
+through :class:`Conv2dFunction`, whose second derivative is made of
+first-order convolutions — forward, input gradient and weight gradient
+— where PyTorch's own conv double backward forms R1's weight gradient as
+a convolution of the two batch-transposed maps with a map-sized kernel,
+which cuDNN runs only on its legacy NCHW kernels.  The values are the
+same up to float reassociation.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from gif_tpu_torch.ops import layout
 from gif_tpu_torch.ops.fused_resample import upsample_conv_2x
 from gif_tpu_torch.ops.upfirdn import blur
 
@@ -72,6 +81,80 @@ def even_extended_pad(h: int, pad0: int, pad1: int, taps_len: int, consumer_k: i
     return pad0, pad1
 
 
+def _wanted(ctx, n: int) -> list:
+    """Whether the running backward needs the gradient of each of the
+    Function's first ``n`` inputs: the engine's own answer (native ops ask
+    it the same), so a gradient nobody asked for (D's weights under G's
+    loss, R1's first backward) is never computed."""
+    out = []
+    for needs, (node, _) in zip(ctx.needs_input_grad[:n], ctx.next_functions):
+        try:
+            out.append(needs and node is not None and torch._C._will_engine_execute_node(node))
+        except RuntimeError:  # a leaf that ``autograd.grad`` captures: asked for
+            out.append(True)
+    return out
+
+
+def _conv_backward(gy, x, w, stride, padding, mask):
+    return torch.ops.aten.convolution_backward(
+        gy, x, w, None, [stride] * 2, [padding] * 2, [1, 1], False, [0, 0], 1, mask + [False])[:2]
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """``F.conv2d(x, w, stride=, padding=)`` (groups 1, no bias) whose
+    backward is :class:`Conv2dBackwardFunction`, differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding)
+        return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx, gw = Conv2dBackwardFunction.apply(gy, x, w, *ctx.conv, *_wanted(ctx, 2))
+        return gx, gw, None, None
+
+
+class Conv2dBackwardFunction(torch.autograd.Function):
+    """(input gradient, weight gradient) of a conv — each None where not
+    wanted — differentiable in ``gy``, ``x`` and ``w``: ``gx`` is linear in
+    ``gy`` and ``w``, ``gw`` in ``gy`` and ``x``, so for incoming ``ggx``,
+    ``ggw`` the gradients are ``conv(ggx, w) + conv(x, ggw)`` for ``gy``,
+    the input gradient of ``gy`` against ``ggw`` for ``x``, and the weight
+    gradient of ``gy`` against ``ggx`` for ``w``.  Both weight gradients
+    come back in ``w``'s strides (:func:`gif_tpu_torch.ops.layout.like`):
+    cuDNN hands a channels-last map's back with NHWC strides, and Adam's
+    foreach kernels and the data-parallel bucket want the parameter's."""
+
+    @staticmethod
+    def forward(ctx, gy, x, w, stride, padding, want_x, want_w):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(gy, x, w)
+        ctx.conv = (stride, padding)
+        gx, gw = _conv_backward(gy, x, w, stride, padding, [want_x, want_w])
+        return gx, None if gw is None else layout.like(gw, w)
+
+    @staticmethod
+    def backward(ctx, ggx, ggw):
+        gy, x, w = ctx.saved_tensors
+        stride, padding = ctx.conv
+        want_gy, want_x, want_w = _wanted(ctx, 3)
+        dgy = dx = dw = None
+        if want_gy:
+            if ggx is not None:
+                dgy = F.conv2d(ggx, w, stride=stride, padding=padding)
+            if ggw is not None:
+                dx_w = F.conv2d(x, ggw, stride=stride, padding=padding)
+                dgy = dx_w if dgy is None else dgy + dx_w
+        if ggw is not None and want_x:
+            dx = _conv_backward(gy, x, ggw, stride, padding, [True, False])[0]
+        if ggx is not None and want_w:
+            dw = layout.like(_conv_backward(gy, ggx, w, stride, padding, [False, True])[1], w)
+        return dgy, dx, dw, None, None, None, None
+
+
 def equal_conv2d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -84,7 +167,7 @@ def equal_conv2d(
     Cin, kh, kw) unit-normal initialized."""
     cout, cin, kh, kw = weight.shape
     scale = 1.0 / math.sqrt(cin * kh * kw)
-    out = F.conv2d(x, (weight * scale).to(x.dtype), stride=stride, padding=padding)
+    out = Conv2dFunction.apply(x, (weight * scale).to(x.dtype), stride, padding)
     if bias is not None:
         out = out + bias.to(out.dtype)[None, :, None, None]
     return out

@@ -56,7 +56,9 @@ While a profiler records, the step marks its phases with
 :func:`gif_tpu_torch.utils.profiling.span` (off, each span is a bool
 check).  ``train.step`` is the whole call, with attributes ``step`` (the
 counter before the step) and ``r1``, and the allocator's ``cudaMalloc``
-calls and alloc retries across it; its children, in order:
+calls and alloc retries and the kernel wrappers' layout copies
+(``layout_copies``, :mod:`gif_tpu_torch.ops.layout`) across it; its
+children, in order:
 
 - ``train.render``: the fused interpolants' draws, the render, the
   quantization and the crop / flip of the conditions;
@@ -78,6 +80,7 @@ import torch
 from gif_tpu_torch import constants as cnst
 from gif_tpu_torch.data.augment import same_padding_crop_torch
 from gif_tpu_torch.device import resolve_device, second_order_safe, set_tf32_policy
+from gif_tpu_torch.ops.layout import layout_copies
 from gif_tpu_torch.parallel.collectives import mean_all_reduce
 from gif_tpu_torch.parallel.mesh import process_count
 from gif_tpu_torch.render.renderer import RenderedMaps, render_tex_and_normal
@@ -157,6 +160,10 @@ def apply_condition_augment(cond: torch.Tensor, batch: dict) -> torch.Tensor:
 
 
 GEN_REG_TYPES = ("none", "path_len_reg", "direct_grad_reg")
+
+
+# The program's counters ``train.step`` records the change of.
+_STEP_COUNTS = {"layout_copies": lambda: layout_copies.copies}
 
 
 def g_schedule(cfg: TrainConfig) -> tuple[int, int]:
@@ -319,7 +326,7 @@ def make_train_step(
 
     def train_step(state, batch, draws=None):
         do_r1 = (state.step + 1) % cfg.r1_interval == 0
-        with span("train.step", allocator=True, step=state.step, r1=do_r1):
+        with span("train.step", allocator=True, counts=_STEP_COUNTS, step=state.step, r1=do_r1):
             return step_phases(state, batch, draws or {}, do_r1)
 
     def step_phases(state, batch, draws, do_r1):

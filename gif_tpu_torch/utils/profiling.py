@@ -16,8 +16,9 @@ other switch.  Off, ``span`` returns one shared null context and costs a
 bool check.  On, each span is a ``record_function`` range (a
 ``user_annotation`` on the trace's clock, beside the device events), its
 host ``perf_counter`` start and end, CUDA events on the current stream at
-entry and exit where CUDA is initialized, and, with ``allocator=True``,
-the caching allocator's ``cudaMalloc`` calls and alloc retries across it.
+entry and exit where CUDA is initialized, with ``allocator=True`` the
+caching allocator's ``cudaMalloc`` calls and alloc retries across it, and
+with ``counts`` the change of the program's own counters across it.
 The records stay in memory (:func:`spans`, the newest
 :data:`SPAN_LIMIT`) until :func:`clear_spans`; each names its enclosing
 span and shares a ``step_id`` with the other spans under one outermost
@@ -65,7 +66,8 @@ class Span:
     """One span's record.  ``parent`` is the enclosing span's name (None
     for an outermost span), ``step_id`` the outermost span's number;
     ``events`` the CUDA events at entry and exit (None without CUDA);
-    ``counters`` the allocator's counts across the span, where asked."""
+    ``counters`` the allocator's counts and the program's counters across
+    the span, where asked."""
 
     name: str
     attrs: dict
@@ -95,8 +97,8 @@ def _allocator_counts() -> tuple[int, int]:
 class _Recording:
     """The live form of a span: see :func:`span`."""
 
-    def __init__(self, name: str, attrs: dict, allocator: bool):
-        self.name, self.attrs, self.allocator = name, attrs, allocator
+    def __init__(self, name: str, attrs: dict, allocator: bool, counts: dict | None):
+        self.name, self.attrs, self.allocator, self.counts_of = name, attrs, allocator, counts or {}
 
     def __enter__(self):
         stack = getattr(_OPEN, "stack", None)
@@ -106,6 +108,7 @@ class _Recording:
         rec = Span(self.name, self.attrs, parent.name if parent else None,
                    parent.step_id if parent else next(_ROOTS))
         self.rec, self.cuda = rec, torch.cuda.is_initialized()
+        self.before = {k: read() for k, read in self.counts_of.items()}
         self.range = torch.profiler.record_function(self.name)
         self.range.__enter__()
         if self.cuda:
@@ -128,19 +131,23 @@ class _Recording:
                 mallocs, retries = _allocator_counts()
                 rec.counters = {"cuda_mallocs": mallocs - self.counts[0],
                                 "num_alloc_retries": retries - self.counts[1]}
+        for k, read in self.counts_of.items():
+            rec.counters[k] = read() - self.before[k]
         self.range.__exit__(*exc)
         return False
 
 
-def span(name: str, allocator: bool = False, **attrs):
+def span(name: str, allocator: bool = False, counts: dict | None = None, **attrs):
     """A context manager that marks the block as the span ``name`` with
     ``attrs`` while a profiler records, and does nothing otherwise (the
     shared null context).  ``allocator`` adds the caching allocator's
     ``cudaMalloc`` calls (``segment.all.allocated``) and alloc retries
-    across the block to the record's ``counters``, on a card."""
+    across the block to the record's ``counters``, on a card; ``counts``
+    (name -> a function reading a counter of the program) adds each
+    counter's change across the block, on any device."""
     if not torch.autograd._profiler_enabled():
         return _OFF
-    return _Recording(name, attrs, allocator)
+    return _Recording(name, attrs, allocator, counts)
 
 
 def spans() -> list:

@@ -9,6 +9,7 @@ close to the f32 answer as the JAX package is (see the test)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gif_tpu.train import losses as jl
@@ -171,3 +172,87 @@ def test_second_order_safe_gives_the_right_bf16_conv_double_backward():
 
     want, got = r1_weight_grad(torch.float32), r1_weight_grad(torch.bfloat16)
     assert ((got - want).norm() / want.norm()).item() < 1e-2
+
+
+def _nchw_forward(disc, image, cond):
+    """D's forward with every map NCHW-contiguous, as the port ran it
+    before its maps went channels-last."""
+    from gif_tpu_torch import ops
+
+    x = disc.from_rgb(torch.cat([image, cond], dim=-1).permute(0, 3, 1, 2).contiguous())
+    for i in range(disc.log_size, 2, -1):
+        x = getattr(disc, f"res{i}")(x)
+        assert x.is_contiguous()
+    x = ops.minibatch_stddev(x.float(), disc.stddev_group, disc.stddev_feat).contiguous()
+    x = disc.final_conv(x)
+    assert x.is_contiguous()
+    return disc.out(disc.final_dense(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)))
+
+
+def _score_grad_r1(d_apply, params, real, cond):
+    rt = torch.from_numpy(real).requires_grad_(True)
+    ct = torch.from_numpy(cond)
+    scores = d_apply(rt, ct)
+    (gin,) = torch.autograd.grad(scores.sum(), rt)
+    r1 = tl.r1_penalty(d_apply, torch.from_numpy(real), ct, 5.0)
+    grads = torch.autograd.grad(r1, params, materialize_grads=True)
+    return [scores.detach().numpy(), gin.numpy(), r1.item()] + [g.numpy() for g in grads]
+
+
+def test_channels_last_discriminator_equals_the_nchw_one_f32():
+    """The score, the image gradient, R1 and R1's parameter gradient of D
+    on channels-last maps against the same D on NCHW-contiguous ones."""
+    _, _, disc = _ported("float32")
+    real, cond = _inputs(seed=3)
+    params = list(disc.parameters())
+    got = _score_grad_r1(disc, params, real, cond)
+    want = _score_grad_r1(lambda i, c: _nchw_forward(disc, i, c), params, real, cond)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert np.all(np.isfinite(g)), i
+        # Reassociated f32 sums (oneDNN's channels-last conv): the bar of
+        # the parity test against JAX above.
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5 * np.abs(w).max(), err_msg=str(i))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_every_resblock_and_head_map_is_channels_last(compute_dtype):
+    """Forward and R1's backward: every ResBlock's output, the head's conv
+    output and the gradient reaching each ResBlock output are channels-last
+    (NHWC strides on the NCHW shape)."""
+    from gif_tpu_torch.ops import layout
+
+    _, _, disc = _ported(compute_dtype)
+    real, cond = _inputs(seed=1)
+    seen = []
+
+    def record(name, out):
+        seen.append((name, layout.is_channels_last(out)))
+        out.register_hook(lambda g: seen.append((name + " grad", layout.is_channels_last(g))))
+
+    hooks = [m.register_forward_hook(lambda m, i, o, name=name: record(name, o))
+             for name, m in disc.named_modules()
+             if name.startswith("res") and "." not in name or name == "final_conv"]
+    tl.r1_penalty(disc, torch.from_numpy(real), torch.from_numpy(cond), 5.0)
+    for h in hooks:
+        h.remove()
+    names = [f"res{i}" for i in range(disc.log_size, 2, -1)]
+    assert [n for n, _ in seen if not n.endswith("grad")] == names + ["final_conv"]
+    assert {n for n, _ in seen if n.endswith("grad")} == {n + " grad" for n in names + ["final_conv"]}
+    assert all(cl for _, cl in seen), seen
+
+
+def test_d_gradients_come_back_in_their_parameters_strides():
+    """cuDNN and oneDNN hand a channels-last map's conv weight gradient
+    back with NHWC strides; D's convs return each one in its parameter's
+    strides, so the step hands Adam dense OIHW gradients."""
+    from gif_tpu_torch.train.step import d_loss_and_grads
+
+    cfg = get_config(8, **tiny_overrides(compute_dtype="bfloat16"))
+    _, _, disc = _ported("bfloat16")
+    real, cond = (torch.from_numpy(a) for a in _inputs(seed=2))
+    fake = torch.flip(real, (0,))
+    for do_r1 in (False, True):
+        _, r1, grads = d_loss_and_grads(disc, real, cond, fake, cfg, do_r1)
+        assert (float(r1) > 0) == do_r1
+        for (name, p), g in zip(disc.named_parameters(), grads):
+            assert g.shape == p.shape and g.stride() == p.stride(), name

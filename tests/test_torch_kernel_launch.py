@@ -99,6 +99,44 @@ def test_blur4_launch_geometry_picks_the_path_by_map():
     assert {m: geo[m]["rows"] for m in (25, 32, 35, 64, 257)} == {25: 16, 32: 16, 35: 8, 64: 16, 257: 16}
 
 
+# Kernel 4 on channels-last maps: the discriminator's blur outputs at batch
+# 16 (pads (2, 2) and (1, 1) on 256 px down to 8 px, 128-512 channels) and
+# their VJPs, and ragged shapes; (n, c, ho, wo, channels a thread).
+NHWC_OUTPUTS = [(16, 128, 257, 257, 8), (16, 128, 256, 256, 8), (16, 256, 129, 129, 8), (16, 512, 65, 65, 8),
+                (16, 512, 33, 33, 8), (16, 512, 17, 17, 8), (16, 512, 9, 9, 8), (16, 512, 8, 8, 8),
+                (16, 512, 65, 65, 4), (3, 9, 7, 5, 1), (2, 130, 17, 13, 1), (3, 12, 33, 31, 4), (1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("n,c,ho,wo,vec", NHWC_OUTPUTS)
+def test_blur4_nhwc_geometry_covers_every_output_once(n, c, ho, wo, vec):
+    g = blur_cuda.blur4_nhwc_geometry(n, c, ho, wo, vec)
+    assert g["blocks"] * blur_cuda.BLUR_THREADS >= g["threads"] > g["threads"] - blur_cuda.BLUR_THREADS
+    assert g["cb"] <= 32 and g["cb"] * g["cblocks"] * vec == c and g["col_strips"] * g["cols"] >= wo
+    # Enough threads to fill the card, or strips of one column already.
+    assert g["threads"] >= blur_cuda.NHWC_THREADS or g["cols"] == 1
+    img, oy, c0, ox0 = blur_cuda.blur4_nhwc_thread_tiles(g, np.arange(g["threads"], dtype=np.int64))
+    assert img.max() == n - 1 and oy.max() == ho - 1 and c0.max() == c - vec and 0 <= ox0.min()
+    # Every output of the first image written by exactly one thread (the
+    # images follow one another in the thread order).
+    first = img == 0
+    assert first.sum() * n == g["threads"]
+    ox = ox0[first, None, None] + np.arange(g["cols"])[:, None]
+    ch = c0[first, None, None] + np.arange(vec)
+    flat = (oy[first, None, None] * wo + ox) * c + ch
+    cover = np.bincount(flat[np.broadcast_to(ox < wo, flat.shape)], minlength=ho * wo * c)
+    assert (cover == 1).all()
+    # A CTA's lanes walk the channels of one pixel, then the next output row.
+    if g["cb"] >= 8 and g["threads"] >= 64:
+        assert (c0[:g["cb"]] == np.arange(g["cb"]) * vec).all() and (oy[:g["cb"]] == 0).all()
+        assert oy[g["cb"]] == min(1, ho - 1)
+
+
+def test_blur4_nhwc_geometry_shortens_strips_on_small_maps():
+    strips = {s: blur_cuda.blur4_nhwc_geometry(16, 128 if s == 257 else 512, s, s, 8)["cols"]
+              for s in (257, 65, 33, 17, 9)}
+    assert strips == {257: 16, 65: 16, 33: 4, 17: 1, 9: 1}
+
+
 def _nchw_backed(b=4, c=3, h=8, w=6):
     """An NHWC view of NCHW memory, as the generator returns its images."""
     x = torch.arange(b * c * h * w, dtype=torch.float32).reshape(b, c, h, w)

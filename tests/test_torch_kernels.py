@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from gif_tpu_torch.ops import activations, blur_cuda
+from gif_tpu_torch.ops import activations, blur_cuda, layout
 from gif_tpu_torch.render import raster, raster_cuda, sampler_cuda, sampling_ops, scatter_cuda, shading
 from torch_port_common import cuda_device  # noqa: F401  (fixture)
 
@@ -527,3 +527,117 @@ def test_scatter_kernel_is_bit_equal_across_calls_under_determinism(cuda_device,
     assert torch.equal(first, second)
     err = (first - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item() + 1e-7, err
+
+
+# Channels-last maps (ops/layout.py): the discriminator's activations at
+# batch 16 — kernels 3 and 5 on each conv's output (256 px at 128
+# channels down to the 4 x 4 head), kernel 4 on each down-blur's input —
+# and ragged ones (odd sizes, channel counts off the 16-byte vector, a base
+# off the 16-byte grid).
+D_ACTS = {
+    "c128_256": (16, 128, 256, 256), "c256_128": (16, 256, 128, 128), "c512_64": (16, 512, 64, 64), "c512_32": (16, 512, 32, 32), "c512_16": (16, 512, 16, 16),
+    "c512_8": (16, 512, 8, 8), "c512_4": (16, 512, 4, 4),
+    "ragged_c9": (3, 9, 7, 5), "ragged_c130": (2, 130, 17, 13), "ragged_c12": (3, 12, 33, 31),
+}
+D_BLURS = {k: v for k, v in D_ACTS.items() if k != "c512_4"}
+
+
+def _channels_last(shape, dtype, device, offset=False):
+    """A dense channels-last map of ``shape``; with ``offset``, one whose
+    base is 3 elements past the 16-byte grid."""
+    n, c, h, w = shape
+    flat = torch.randn(n * c * h * w + 3, device=device).to(dtype)
+    x = (flat[3:] if offset else flat[:-3]).reshape(n, h, w, c).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+    return x
+
+
+def _counts():
+    return (activations.fused_leaky_relu.launches, activations.fused_leaky_relu_cl.launches,
+            activations.fused_leaky_relu_backward.launches, activations.fused_leaky_relu_backward_cl.launches,
+            blur_cuda.blur4.launches, blur_cuda.blur4_cl.launches, blur_cuda.blur4_vjp.launches,
+            blur_cuda.blur4_vjp_cl.launches, layout.layout_copies.copies)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(D_ACTS))
+def test_flr_kernels_on_channels_last_maps_match_plain(cuda_device, shape, dtype):
+    x = _channels_last(D_ACTS[shape], dtype, cuda_device, offset=shape == "ragged_c12").requires_grad_(True)
+    c = x.shape[1]
+    b = torch.randn(c, device=cuda_device).requires_grad_(True)
+    g = _channels_last(x.shape, dtype, cuda_device).requires_grad_(True)
+    before = _counts()
+    y = activations.fused_leaky_relu(x, b)
+    dx, db = torch.autograd.grad(y, (x, b), g, create_graph=True)
+    u = _channels_last(x.shape, dtype, cuda_device)
+    (dg,) = torch.autograd.grad((dx * u).sum(), g)
+    torch.cuda.synchronize()
+    # Forward, backward and grad-of-grad on the channels-last variants, no copy.
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 1, 0, 2, 0, 0, 0, 0, 0]
+    xd, bd = x.detach(), b.detach()
+    assert y.is_contiguous(memory_format=torch.channels_last) and torch.equal(y, activations.fused_leaky_relu_plain(xd, bd))
+    want = activations.fused_leaky_relu_backward_plain(xd, bd, g.detach())
+    assert dx.is_contiguous(memory_format=torch.channels_last) and dx.dtype == dtype and torch.equal(dx, want)
+    torch.testing.assert_close(db, want.float().sum((0, 2, 3)), rtol=1e-5, atol=1e-3)
+    assert torch.equal(dg, activations.fused_leaky_relu_backward_plain(xd, bd, u))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pads", [(2, 2, 2, 2), (1, 1, 1, 1)])
+@pytest.mark.parametrize("shape", list(D_BLURS))
+def test_blur_kernel_and_vjp_on_channels_last_maps_match_plain(cuda_device, shape, pads, dtype):
+    x = _channels_last(D_BLURS[shape], dtype, cuda_device, offset=shape == "ragged_c12").requires_grad_(True)
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), 1.0)
+    before = _counts()
+    out = blur_cuda.blur4(x, taps, pads)
+    g = _channels_last(out.shape, dtype, cuda_device)
+    (dx,) = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 0, 0, 1, 0, 1, 0]
+    assert out.is_contiguous(memory_format=torch.channels_last) and dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, blur_cuda.blur4_plain(x.detach(), taps[::-1], pads))
+    assert torch.equal(dx, blur_cuda.blur4_plain(g, taps, tuple(3 - p for p in pads)))
+
+
+def test_blur_vjp_takes_its_gradient_in_the_maps_format(cuda_device):
+    """An NCHW map's VJP gets a channels-last gradient copied to NCHW (one
+    counted copy, the NCHW launch), and a channels-last map's an NCHW one
+    copied to channels-last."""
+    taps = blur_cuda.taps_1d((1, 3, 3, 1), 1.0)
+    for cl in (False, True):
+        x = torch.randn((4, 64, 32, 32), device=cuda_device).bfloat16()
+        x = (x.contiguous(memory_format=torch.channels_last) if cl else x).requires_grad_(True)
+        out = blur_cuda.blur4(x, taps, (2, 2, 2, 2))
+        g = torch.randn(out.shape, device=cuda_device).bfloat16()
+        g = g if cl else g.contiguous(memory_format=torch.channels_last)
+        before = _counts()
+        (dx,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 0, 0, 0, int(not cl), int(cl), 1]
+        assert torch.equal(dx, blur_cuda.blur4_plain(g, taps, (1, 1, 1, 1)))
+        assert layout.is_channels_last(dx) == cl
+
+
+def test_discriminator_r1_step_runs_channels_last_without_copies(cuda_device):
+    """D at full width, bf16, batch 16: its forward, the non-saturating
+    loss, R1 and the parameter gradient launch kernels 3, 4 and 5 only on
+    their channels-last variants and make no layout copy; the parameter
+    gradients come back in their parameters' strides."""
+    from gif_tpu_torch.models.discriminator import Discriminator
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.step import d_loss_and_grads
+
+    cfg = get_config(8, r1_interval=16)
+    disc = Discriminator.from_config(cfg).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    real = torch.rand((16, 256, 256, 3), device=cuda_device, generator=gen) * 2 - 1
+    fake = torch.rand((16, 256, 256, 3), device=cuda_device, generator=gen) * 2 - 1
+    cond = torch.rand((16, 256, 256, cfg.disc_in_channels - 3), device=cuda_device, generator=gen) * 2 - 1
+    before = _counts()
+    d_loss, r1, grads = d_loss_and_grads(disc, real, cond, fake, cfg, do_r1=True)
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(_counts(), before)]
+    assert delta[0] == delta[2] == delta[4] == delta[6] == 0, delta
+    assert min(delta[1], delta[3], delta[5], delta[7]) > 0 and delta[8] == 0, delta
+    assert bool(torch.isfinite(d_loss)) and float(r1) > 0
+    assert all(g.stride() == p.stride() for g, p in zip(grads, disc.parameters()))

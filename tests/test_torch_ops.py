@@ -225,3 +225,66 @@ def test_resize_bilinear_matches_jax():
             np.asarray(j_resize(jnp.asarray(x), s, s)),
             rtol=1e-5, atol=1e-6,
         )
+
+
+def test_layout_helpers_tell_the_formats_apart_and_count_copies():
+    from gif_tpu_torch.ops import layout
+
+    x = torch.randn(2, 5, 4, 3)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    assert not layout.is_channels_last(x) and layout.is_channels_last(cl)
+    # One memory order for both (a single channel, 1 x 1 maps): NCHW.
+    assert not layout.is_channels_last(torch.randn(2, 1, 4, 3).contiguous(memory_format=torch.channels_last))
+    assert not layout.is_channels_last(torch.randn(2, 5, 1, 1).contiguous(memory_format=torch.channels_last))
+    assert not layout.is_channels_last(torch.randn(4, 6)) and not layout.is_channels_last(cl[:, :3])
+    before = layout.layout_copies.copies
+    assert layout.dense(x, False) is x and layout.dense(cl, True) is cl
+    assert layout.layout_copies.copies == before
+    got = layout.dense(cl, False), layout.dense(x, True), layout.dense(cl[:, 1:], True)
+    assert got[0].is_contiguous() and layout.is_channels_last(got[1]) and layout.is_channels_last(got[2])
+    assert torch.equal(got[0], x) and torch.equal(got[1], x) and torch.equal(got[2], x[:, 1:])
+    assert layout.layout_copies.copies == before + 3
+    # A weight gradient in the NHWC strides a channels-last map gives it,
+    # back in its OIHW weight's, counted apart.
+    w = torch.randn(4, 5, 3, 3)
+    before = layout.layout_copies.weight_grads
+    assert layout.like(w, w) is w and layout.layout_copies.weight_grads == before
+    src = torch.randn(4, 5, 3, 3).bfloat16().contiguous(memory_format=torch.channels_last)
+    gw = layout.like(src, w)
+    assert gw.stride() == w.stride() and gw.dtype == torch.bfloat16
+    assert torch.equal(gw, src) and layout.layout_copies.weight_grads == before + 1
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("stride,padding,size", [(1, 1, 9), (2, 0, 9), (2, 0, 10), (1, 0, 7)])
+def test_conv_function_matches_native_conv_to_second_order(stride, padding, size, channels_last):
+    """``Conv2dFunction`` (the discriminator's conv): its output and first
+    derivatives equal the native conv's bit for bit; its second
+    derivatives (R1's through the image gradient, and through both
+    gradients) equal the native double backward's to f64 rounding; every
+    weight gradient has the weight's strides, whatever the map's format."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(size + stride)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x0 = torch.randn((2, 3, size, size), dtype=torch.float64, generator=gen).contiguous(memory_format=fmt)
+    w0 = torch.randn((4, 3, 3, 3), dtype=torch.float64, generator=gen)
+    ho = (size + 2 * padding - 3) // stride + 1
+    u = torch.randn((2, 4, ho, ho), dtype=torch.float64, generator=gen)
+
+    def derivatives(conv):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        y = conv(x, w)
+        first = torch.autograd.grad((y * u).sum(), (x, w))
+        (gx,) = torch.autograd.grad((conv(x, w) * u).sum(), x, create_graph=True)
+        r1 = torch.autograd.grad(gx.square().sum(), w)
+        gx, gw = torch.autograd.grad((conv(x, w) * u * conv(x, w)).sum(), (x, w), create_graph=True)
+        both = torch.autograd.grad(gx.square().sum() + gw.square().sum(), (x, w))
+        return y.detach(), first, r1 + both
+
+    got = derivatives(lambda x, w: tconv.Conv2dFunction.apply(x, w, stride, padding))
+    want = derivatives(lambda x, w: F.conv2d(x, w, stride=stride, padding=padding))
+    assert torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * b.abs().max().item())
+    assert all(gw.stride() == w0.stride() for gw in (got[1][1], got[2][0], got[2][2]))
