@@ -186,6 +186,19 @@ Phases (each raises on failure; nothing is caught):
     error, relative L2, bar, ``gif_tpu``'s bf16-vs-f32 distance for a bf16
     case, and the spread between the two identical calls on the card with
     its share of the bar.
+24. StyleGAN3-T's filtered leaky ReLU (:func:`filtered_lrelu_phase`,
+    ``csrc/filtered_lrelu.cu``): the wrapper ``filtered_lrelu`` against
+    ``filtered_lrelu_plain``, forward and backward (dx and the bias
+    gradient), at the first layer of the 1024 px schedule of each (up,
+    down) and dtype, batch 4, in the layer's dtype, at the card tests'
+    bars; then the ``stylegan3-t-ffhq1024`` preset at batch 4 through
+    ``make_train_step``: a warm-up (R1) step, both launch counters 0 just
+    before a plain step and read just after (28 forward launches, 14
+    backward), that step's launches recorded by shape and replayed behind
+    a device spin beside their bound (``benchmark/harness/flops_sg3.py``
+    ``launch_counts``: max(bytes / 3.35 TB/s, f32 ops / 67 TFLOP/s)).
+    ``python3 chip_smoke.py --filtered-lrelu`` builds the kernels and runs
+    this phase alone.
 
 Times: ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
 from CUDA events around 20 calls (plain versions: 3) queued behind a
@@ -215,8 +228,9 @@ of its recorded warm-up step, the deterministic run's and its resume's
 launches in all and by script (training children by arm); ``goldens23``:
 phase 23's launches; kernel 6's
 ``albedo``: its numbers at the albedo
-lookup's gradient), the card's name and power limit as nvidia-smi reports
-them, and the result line.
+lookup's gradient; phase 24's two filtered-leaky-ReLU records, their
+launches those of one batch-4 plain step), the card's name and power
+limit as nvidia-smi reports them, and the result line.
 """
 
 from __future__ import annotations
@@ -3779,6 +3793,143 @@ def _csv_metrics(rsens: str, arm: str) -> list:
             for r in _csv_rows(os.path.join(rsens, arm, "8", "metrics.csv"))]
 
 
+# Phase 24: StyleGAN3-T's filtered leaky ReLU at batch 4 (one card's share
+# of the published batch).  Bars: the card tests' (tests/test_torch_kernels.py).
+SG3_PRESET = "stylegan3-t-ffhq1024"
+SG3_BATCH = 4
+SG3_LAUNCHES = {"forward": 28, "backward": 14}  # a plain step: G's and D's G forwards, G's backward
+SG3_KERNELS = {
+    "forward": dict(name="filtered_lrelu", route="cuda", source="gif_tpu_torch/csrc/filtered_lrelu.cu",
+                    replaces="none: gif_tpu has no alias-free generator"),
+    "backward": dict(name="filtered_lrelu_backward", route="cuda", source="gif_tpu_torch/csrc/filtered_lrelu.cu",
+                     replaces="none: gif_tpu has no alias-free generator"),
+}
+
+
+def check_filtered_lrelu_layer(spec) -> tuple:
+    """The wrapper against the plain version at one layer of the schedule,
+    batch :data:`SG3_BATCH`, in the layer's dtype: (max |y - plain|, max
+    |dx - plain|); raises past the card tests' bars."""
+    import torch
+    from gif_tpu_torch.ops import filtered_lrelu as fl
+
+    g = torch.Generator(device="cuda").manual_seed(spec["out_size"] * 1000 + spec["out_channels"])
+    size = spec["in_size"] + spec["kernel"] - 1
+    bf16 = spec["low_precision"]
+    x = torch.randn((SG3_BATCH, spec["out_channels"], size, size), generator=g, device="cuda")
+    x = x.to(torch.bfloat16 if bf16 else torch.float32)
+    b = torch.randn(spec["out_channels"], generator=g, device="cuda") * 0.2
+    fu = torch.from_numpy(spec["up_filter"]).cuda()
+    fd = torch.from_numpy(spec["down_filter"]).cuda()
+    args = (spec["up"], spec["down"], spec["padding"], 2**0.5, 0.2, 256.0)
+    outs = []
+    for fn in (fl.filtered_lrelu, fl.filtered_lrelu_plain):
+        before = (fl.filtered_lrelu.launches, fl.filtered_lrelu_backward.launches)
+        xi, bi = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fn(xi, fu, fd, bi, *args)
+        dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+        y.backward(dy.to(y.dtype))
+        n = (fl.filtered_lrelu.launches - before[0], fl.filtered_lrelu_backward.launches - before[1])
+        outs.append((y.detach().float(), xi.grad.float(), bi.grad.float(), n))
+    torch.cuda.synchronize()
+    (y, dx, db, n), (yp, dxp, dbp, n_plain) = outs
+    assert n == (1, 1) and n_plain == (0, 0), (spec["name"], n, n_plain)
+    scale = yp.abs().max().item()
+    y_err = ((y - yp).abs() - (2**-7 if bf16 else 0.0) * yp.abs()).max().item()
+    dx_rel = (torch.linalg.vector_norm(dx - dxp) / torch.linalg.vector_norm(dxp)).item()
+    db_share = ((db - dbp).abs() / (1e-5 * dxp.abs().sum((0, 2, 3)))).max().item()
+    log(f"  {spec['name']} (up {spec['up']}, down {spec['down']}, {'bf16' if bf16 else 'f32'}, "
+        f"{tuple(x.shape)}): y {y_err / scale:.3g} of max (bar 1e-5), dx {dx_rel:.3g} by norm (bar "
+        f"{2**-8 if bf16 else 1e-5:.3g}), db {db_share:.3g} of its bar")
+    assert y_err <= 1e-5 * scale and dx_rel <= (2**-8 if bf16 else 1e-5) and db_share <= 1.0, spec["name"]
+    return (y - yp).abs().max().item(), (dx - dxp).abs().max().item()
+
+
+def filtered_lrelu_phase(smi: str) -> list:
+    """Phase 24 (module docstring): the layer checks, the counted batch-4
+    step and its launches replayed.  Returns the two kernel records."""
+    import torch
+    from benchmark.harness import flops_sg3
+    from benchmark.harness.train_uncond import record_flrelu, replay_flrelu
+    from gif_tpu_torch.device import set_tf32_policy
+    from gif_tpu_torch.models.stylegan3 import synthesis_schedule
+    from gif_tpu_torch.ops import filtered_lrelu as fl
+    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.state import create_train_state
+    from gif_tpu_torch.train.step import make_train_step
+
+    set_tf32_policy()
+    t0 = time.perf_counter()
+    firsts = {}
+    for spec in synthesis_schedule(1024)[1:]:
+        if not spec["torgb"]:
+            firsts.setdefault((spec["up"], spec["down"], spec["low_precision"]), spec)
+    errs = [check_filtered_lrelu_layer(spec) for spec in firsts.values()]
+    log(f"phase filtered leaky ReLU checks: {len(firsts)} layers at batch {SG3_BATCH}: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    cfg = get_config(SG3_PRESET, batch_size=SG3_BATCH)
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, None, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"real_image": torch.rand((SG3_BATCH, cfg.max_size, cfg.max_size, 3), generator=gen,
+                                      device="cuda") * 2 - 1}
+
+    def draws():
+        return {k: torch.randn((SG3_BATCH, 512), generator=gen, device="cuda") for k in ("z_g", "z_d")}
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch, draws())  # step 0: the R1 step
+    torch.cuda.synchronize()
+    log(f"phase sg3 warm-up (R1) step: {time.perf_counter() - t0:.2f} s; metrics "
+        f"{ {k: v.item() for k, v in m.items()} }")
+    fl.filtered_lrelu.launches = fl.filtered_lrelu_backward.launches = 0
+    launches = record_flrelu(lambda: (step(state, batch, draws()), torch.cuda.synchronize()))
+    counted = {"forward": fl.filtered_lrelu.launches, "backward": fl.filtered_lrelu_backward.launches}
+    assert counted == SG3_LAUNCHES, counted
+    records = []
+    for i, (kind, meta) in enumerate(SG3_KERNELS.items()):
+        mine = {k: v for k, v in launches.items() if k[0] == kind}
+        assert sum(c for c, _ in mine.values()) == counted[kind], (kind, mine.keys())
+        t = replay_flrelu(mine)
+        bytes_s = ops_s = 0.0
+        for (_, shape, dtype, up, down, padding), (count, (fu, fd, *_)) in mine.items():
+            y0, y1, x0, x1 = fl._pads(padding)
+            out_hw = (fl.output_size(shape[2], up, down, y0, y1, fu.numel(), fd.numel()),
+                      fl.output_size(shape[3], up, down, x0, x1, fu.numel(), fd.numel()))
+            ops, nb = flops_sg3.launch_counts(kind, shape, out_hw, up, down, torch.empty((), dtype=dtype).element_size())
+            bytes_s += count * nb / flops_sg3.HBM_BYTES_PER_S
+            ops_s += count * ops / flops_sg3.PEAK_F32_FLOPS
+        records.append({**meta, "launches": counted[kind], "max_abs_err": max(e[i] for e in errs),
+                        "ms": 1e3 * t["measured_s"], "plain_ms": None, "bound_ms": 1e3 * t["bound_s"],
+                        "bound_by": "f32 ops" if ops_s > bytes_s else "bytes", "library_ms": None,
+                        "share_of_bound": t["bound_s"] / t["measured_s"]})
+        log(f"phase sg3 {meta['name']}: {counted[kind]} launches in one plain batch-{SG3_BATCH} step "
+            f"({len(mine)} shapes), {1e3 * t['measured_s']:.3f} ms replayed, bound {1e3 * t['bound_s']:.3f} "
+            f"ms ({100 * t['bound_s'] / t['measured_s']:.1f}%); on {smi}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return records
+
+
+def filtered_lrelu_only() -> int:
+    """``--filtered-lrelu``: phase 1's build, then phase 24 alone."""
+    import torch
+    from gif_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    _, nvcc_s, _ = kernels.build()
+    log(f"phase build: nvcc {nvcc_s:.2f} s")
+    print(json.dumps({"kernels": filtered_lrelu_phase(smi)}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3981,6 +4132,9 @@ def main() -> int:
     # --- phase 23: the port at full width against gif_tpu's goldens ---
     golden_launches = full_width_goldens(res, counters, smi)
 
+    # --- phase 24: StyleGAN3-T's filtered leaky ReLU ---
+    sg3_records = filtered_lrelu_phase(smi)
+
     # One record per kernel: launches from the counted run_id-8 train steps
     # and the other numbers at its shapes (one R1 step's launches); the
     # forward kernels carry their served-path numbers under "serve", every
@@ -4018,6 +4172,7 @@ def main() -> int:
                                errs_slice.get(kind, 0.0), errs_study.get(kind, 0.0),
                                albedo["max_abs_err"] if kind == "scatter" else 0.0)
         records.append({**{k: r[k] for k in keys}, **{k: v for k, v in r.items() if k not in keys}})
+    records += sg3_records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4034,4 +4189,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--counted-train"]:  # phase 22's training children
         counted_train_child(sys.argv[2], sys.argv[3:])
         sys.exit(0)
+    if sys.argv[1:2] == ["--filtered-lrelu"]:  # phase 24 alone
+        sys.exit(filtered_lrelu_only())
     sys.exit(main())

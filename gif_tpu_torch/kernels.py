@@ -29,7 +29,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster.cu", "sampler.cu", "blur.cu", "scatter.cu")
+SOURCES = ("raster.cu", "sampler.cu", "blur.cu", "scatter.cu", "filtered_lrelu.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -12,6 +12,14 @@ kernels 3-5 take it natively.  Module names
 follow the flax tree, so :mod:`gif_tpu_torch.tools.convert_params` maps it
 one to one.  ``final_dense`` reads the 4x4 map flattened in H, W, C order,
 as the NHWC reference does, so its weight converts unchanged.
+
+StyleGAN3-T trains the same residual D, unconditional (3 channels in), as
+NVlabs' ``networks_stylegan2.Discriminator`` at its defaults: the blocks
+of input resolution ``low_precision_res`` and above in the compute dtype
+(the four highest resolutions, NVlabs' ``num_fp16_res = 4``), the rest in
+float32, and ``final_dense``'s leaky ReLU with gain sqrt(2)
+(``apply_sqrt2``, the config's ``d_dense_sqrt2``).  GIF keeps every block
+in the compute dtype and no gain.
 """
 
 from __future__ import annotations
@@ -51,20 +59,27 @@ class Discriminator(nn.Module):
         stddev_feat: int = 1,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
+        low_precision_res: int = 0,
+        apply_sqrt2: bool = False,
     ):
         super().__init__()
         chans = discriminator_channels(channel_multiplier, max_channels)
         self.stddev_group = stddev_group
         self.stddev_feat = stddev_feat
-        self.from_rgb = ConvLayer(in_channels, chans[size], 1, dtype=dtype, generator=generator)
+
+        def block_dtype(res):
+            return dtype if res >= low_precision_res else torch.float32
+
+        self.from_rgb = ConvLayer(in_channels, chans[size], 1, dtype=block_dtype(size), generator=generator)
         self.log_size = int(math.log2(size))
         in_ch = chans[size]
         for i in range(self.log_size, 2, -1):
             out_ch = chans[2 ** (i - 1)]
-            setattr(self, f"res{i}", ResBlock(in_ch, out_ch, dtype=dtype, generator=generator))
+            setattr(self, f"res{i}", ResBlock(in_ch, out_ch, dtype=block_dtype(2**i), generator=generator))
             in_ch = out_ch
         self.final_conv = ConvLayer(in_ch + stddev_feat, chans[4], 3, generator=generator)
-        self.final_dense = EqualLinear(chans[4] * 4 * 4, chans[4], activation=True, generator=generator)
+        self.final_dense = EqualLinear(chans[4] * 4 * 4, chans[4], activation=True, apply_sqrt2=apply_sqrt2,
+                                       generator=generator)
         self.out = EqualLinear(chans[4], 1, generator=generator)
 
     @classmethod
@@ -78,6 +93,8 @@ class Discriminator(nn.Module):
             max_channels=cfg.max_channels,
             dtype=getattr(torch, cfg.compute_dtype),
             generator=torch.Generator().manual_seed(seed),
+            low_precision_res=cfg.d_low_precision_res,
+            apply_sqrt2=cfg.d_dense_sqrt2,
         )
 
     def forward(self, image: torch.Tensor, condition: torch.Tensor | None = None) -> torch.Tensor:

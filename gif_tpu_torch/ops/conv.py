@@ -182,21 +182,38 @@ def modulated_conv2d(
     upsample: bool = False,
     blur_taps=(1, 3, 3, 1),
     eps: float = 1e-8,
+    padding: int | None = None,
+    input_gain: torch.Tensor | None = None,
+    prenormalize: bool = False,
 ) -> torch.Tensor:
-    """Style-modulated conv (StyleGAN2) on NCHW activations.
+    """Style-modulated conv (StyleGAN2; StyleGAN3's layer with the last
+    three arguments) on NCHW activations.
 
     Args:
       x: (N, Cin, H, W), in the compute dtype.
       weight: (Cout, Cin, kh, kw) unit-normal initialized (the runtime
         ``1/sqrt(fan_in)`` He scale is applied here).
       style: (N, Cin) f32 per-input-channel modulation.
+      padding: of the stride-1 conv (``kh // 2`` when None; StyleGAN3's
+        full convolution is ``kh - 1``).
+      input_gain: a 0-d f32 factor on the output (StyleGAN3's
+        ``rsqrt(magnitude_ema)``, applied to the modulated weight there).
+      prenormalize: StyleGAN3's pre-normalization, with ``demodulate``:
+        the weight by its RMS per output channel (in place of the He
+        scale) and the styles by their RMS over the whole (N, Cin) array.
 
     Returns:
-      (N, Cout, H', W'); H' = 2H with ``upsample``, else H.
+      (N, Cout, H', W'); H' = 2H with ``upsample``, else H + 2 padding -
+      kh + 1.
     """
     cout, cin, kh, kw = weight.shape
-    w = weight * (1.0 / math.sqrt(cin * kh * kw))
-    xs = x * style[:, :, None, None].to(x.dtype)
+    if prenormalize:
+        w = weight * weight.square().mean((1, 2, 3), keepdim=True).rsqrt()
+        style = style * style.square().mean().rsqrt()
+    else:
+        w = weight * (1.0 / math.sqrt(cin * kh * kw))
+    scaled = style if input_gain is None else style * input_gain
+    xs = x * scaled[:, :, None, None].to(x.dtype)
     wc = w.to(x.dtype)
     if upsample:
         mode = resample_mode()
@@ -218,8 +235,10 @@ def modulated_conv2d(
             out = F.conv_transpose2d(xs, wc.transpose(0, 1), stride=2, output_padding=extra)
             out = blur(out, pad=(pad0, pad1 - extra), taps=blur_taps, upsample_factor=2)
     else:
-        out = F.conv2d(xs, wc, padding=kh // 2)
+        out = F.conv2d(xs, wc, padding=kh // 2 if padding is None else padding)
     if demodulate:
+        # Demodulated without the input gain: StyleGAN3 applies it to the
+        # weight after the demodulation.
         out = out * demodulation(w, style, eps)[:, :, None, None].to(out.dtype)
     return out
 

@@ -40,6 +40,9 @@ import sys
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="GIF training (PyTorch port)")
     p.add_argument("--run_id", type=int, default=0, help="preset id: 0/3/7/8/29")
+    p.add_argument("--preset", type=str, default=None,
+                   help="another architecture's preset in place of --run_id: stylegan3-t-ffhq1024 "
+                        "(unconditional, trained on the dataset's images alone)")
     p.add_argument("--data", type=str, default=None, help="packed dataset .npz")
     p.add_argument("--flame_resources", type=str, default=None)
     p.add_argument("--out_dir", type=str, default="runs")
@@ -89,8 +92,12 @@ def parse_args(argv=None):
 def _preset(args):
     """The run's config before the dataset is known: (run_id preset with
     the CLI's batch, debug overrides)."""
-    from gif_tpu_torch.train.config import get_config
+    from gif_tpu_torch.train.config import SG3_TINY_OVERRIDES, get_config
 
+    if args.preset:
+        if args.debug:
+            return get_config(args.preset, batch_size=min(args.batch_size, 8), **SG3_TINY_OVERRIDES)
+        return get_config(args.preset, batch_size=args.batch_size)
     if args.debug:
         return get_config(
             args.run_id,
@@ -142,7 +149,14 @@ def run(args, group=None):
         device = resolve_device(args.device)
     main_rank = is_main_process(group)
     cfg = _preset(args)
-    if args.debug:
+    if cfg.architecture != "gif":
+        # Unconditional: images alone, no FLAME.
+        res = None
+        if args.data:
+            dataset = load_packed_dataset(args.data)
+        else:
+            dataset = SyntheticFlameDataset(n=64 if args.debug else args.synthetic_n, size=cfg.max_size)
+    elif args.debug:
         res = synthetic_flame_resources(seed=1, n_vertices=503)
         if args.synthetic_images == "renders":
             dataset = SyntheticRenderDataset(res, n=64, size=32, device=device)
@@ -188,7 +202,7 @@ def run(args, group=None):
             params = load_inception_npz(args.inception_weights)
         fid_computer = FidComputer(params, stats_dir=os.path.join(args.out_dir, "fid_stats"), device=device)
 
-    if main_rank:
+    if main_rank and cfg.architecture == "gif":
         # Like the reference's graph drawings, a failure here costs the
         # report only, never the run.
         try:

@@ -8,11 +8,16 @@ built here equals the reference's field for field.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import ClassVar, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    # Which G the step trains: "gif", GIF's conditional StyleGAN2 (these
+    # fields, the JAX package's), or another architecture's config class
+    # (:class:`StyleGAN3Config`).
+    architecture: ClassVar[str] = "gif"
     run_id: int = 0
     # --- model ---
     rendered_flame_as_condition: bool = True
@@ -89,6 +94,17 @@ class TrainConfig:
         return int(math.log2(self.max_size)) - 2
 
     @property
+    def d_low_precision_res(self) -> int:
+        """The lowest input resolution of a D block in the compute dtype
+        (0: every block)."""
+        return 0
+
+    @property
+    def d_dense_sqrt2(self) -> bool:
+        """Whether D's ``final_dense`` leaky ReLU takes the gain sqrt(2)."""
+        return False
+
+    @property
     def g_lr(self) -> float:
         ratio = self.g_reg_interval / (self.g_reg_interval + 1)
         return self.lr * ratio
@@ -146,6 +162,70 @@ _PRESETS = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class StyleGAN3Config(TrainConfig):
+    """StyleGAN3-T (models/stylegan3.py) with StyleGAN2's unconditional D,
+    trained by train/uncond_step.py.  Of the GIF fields it reads the
+    widths (``max_size``, ``max_channels``, ``channel_multiplier`` for D,
+    ``nmlp_for_z_to_w``), ``compute_dtype``, ``batch_size``, ``lr`` (D's),
+    ``d_reg_interval``, ``r1_interval``, ``r1_weight`` (gamma / 2) and
+    ``ema_decay``; the condition flags are off."""
+
+    architecture: ClassVar[str] = "stylegan3-t"
+    # G's channel table: channel_base / 2 / cutoff, capped at max_channels.
+    channel_base: int = 32768
+    # The N highest resolutions of G and D in the compute dtype, the rest
+    # in float32 (NVlabs' fp16 rule).
+    num_fp16_res: int = 4
+    magnitude_ema_beta: float = 0.5 ** (32 / 20_000)
+    # G's learning rate.  G has no lazy regularizer, so its Adam takes it
+    # and betas (0, 0.99) as they are.
+    glr: float = 0.0025
+
+    @property
+    def d_low_precision_res(self) -> int:
+        return max(2 ** (int(math.log2(self.max_size)) + 1 - self.num_fp16_res), 8)
+
+    @property
+    def d_dense_sqrt2(self) -> bool:
+        return True
+
+    @property
+    def g_lr(self) -> float:
+        return self.glr
+
+    @property
+    def g_betas(self) -> tuple:
+        return (0.0, 0.99)
+
+
+# Presets of other architectures: name -> (config class, fields).
+MODEL_PRESETS = {
+    # StyleGAN3-T at FFHQ 1024 px (NVlabs/stylegan3 train.py --cfg=stylegan3-t
+    # --gpus=8 --batch=32 --gamma=32.8 --mirror=1): 2 mapping layers, D's
+    # learning rate 0.002, R1 gamma 32.8 every 16th step, channel_base
+    # 32768 (D's table is channel_multiplier 2's).  The batch is global,
+    # over 8 cards.
+    "stylegan3-t-ffhq1024": (StyleGAN3Config, dict(
+        rendered_flame_as_condition=False,
+        normal_maps_as_cond=False,
+        apply_texture_space_interpolation_loss=False,
+        render_in_step=False,
+        nmlp_for_z_to_w=2,
+        channel_multiplier=2,
+        max_channels=512,
+        init_size=1024,
+        max_size=1024,
+        render_image_size=1024,
+        batch_size=32,
+        lr=0.002,
+        d_reg_interval=16,
+        r1_interval=16,
+        r1_weight=16.4,
+    )),
+}
+
+
 # Overrides for interactive CPU smoke runs (scripts' --tiny flag, e2e
 # script tests): XLA:CPU executes per-sample modulated-conv work serially,
 # so the 512-channel 256px model takes minutes per batch on host.
@@ -159,10 +239,26 @@ TINY_OVERRIDES = dict(
 )
 
 
-def get_config(run_id: int = 0, **overrides) -> TrainConfig:
+# The same for the StyleGAN3-T preset: 32 px, at most 32 channels.
+SG3_TINY_OVERRIDES = dict(
+    max_size=32,
+    init_size=32,
+    render_image_size=32,
+    channel_base=1024,
+    max_channels=32,
+    compute_dtype="float32",
+)
+
+
+def get_config(run_id: int | str = 0, **overrides) -> TrainConfig:
+    """The GIF preset ``run_id``, or the preset of :data:`MODEL_PRESETS`
+    of that name, with ``overrides``."""
+    if run_id in MODEL_PRESETS:
+        cls, fields = MODEL_PRESETS[run_id]
+        return cls(run_id=run_id, **{**fields, **overrides})
     if run_id not in _PRESETS:
         raise ValueError(
-            f"Unknown run_id {run_id}; shipped presets: {sorted(_PRESETS)}"
+            f"Unknown run_id {run_id}; shipped presets: {sorted(_PRESETS)} and {sorted(MODEL_PRESETS)}"
         )
     kwargs = dict(_PRESETS[run_id])
     kwargs.update(overrides)

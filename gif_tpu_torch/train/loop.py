@@ -104,9 +104,13 @@ def train(
 ):
     """Run training to ``total_iters`` steps; returns the train state.
 
+    A StyleGAN3 config (:class:`~gif_tpu_torch.train.config.StyleGAN3Config`)
+    trains its unconditional step on the dataset's images alone (``res``
+    unused); it has no sampler, so no FID.
+
     ``out_dir/{run_id}`` gets ``checkpoint/``, ``sample/{run_id}/`` and
-    ``metrics.csv``.  ``seed`` (default ``run_id``) seeds the networks, the
-    data stream and the step's draws.  ``fid_computer`` (a
+    ``metrics.csv``.  ``seed`` (default ``run_id``, 0 for a named preset)
+    seeds the networks, the data stream and the step's draws.  ``fid_computer`` (a
     :class:`gif_tpu_torch.eval.fid.FidComputer`, or None for no FID)
     measures the EMA generator on up to ``fid_n_samples`` accumulated fits
     against the first ``fid_real_samples`` real frames.
@@ -132,6 +136,9 @@ def train(
             "flip/crop augmentation invalidates the FLAME labels that the texture-interpolation "
             "loss consumes; disable the augmentation or the loss"
         )
+    gif = cfg.architecture == "gif"
+    if not gif and fid_computer is not None:
+        raise ValueError(f"no FID for {cfg.architecture}: its training has no sampler")
     world, rank = (process_count(group), process_index(group)) if group is not None else (1, 0)
     if cfg.batch_size % world:
         raise ValueError(f"global batch {cfg.batch_size} not divisible by {world} processes")
@@ -143,7 +150,8 @@ def train(
     logger = MetricsLogger(os.path.join(run_dir, "metrics.csv")) if is_main else None
     viz = VisualizationSaver(run_dir, cfg.run_id) if is_main else None
 
-    seed = cfg.run_id if seed is None else seed
+    if seed is None:
+        seed = cfg.run_id if isinstance(cfg.run_id, int) else 0
     state = create_train_state(cfg, seed=seed, device=dev)
     if converted_ckpt is not None and ckpt.latest_step() is None:
         # The reference's fine-tune path; a checkpoint of the run itself
@@ -163,7 +171,7 @@ def train(
     sampler = FlameSampler(
         cfg, res, state.g_ema, batch_size=min(cfg.batch_size, 16), eye_center=False,
         max_tris_per_tile=max_tris_per_tile, device=dev,
-    ) if is_main else None
+    ) if is_main and gif else None
 
     start = state.step
     fid = float("nan")

@@ -65,7 +65,7 @@ class TrainState:
         key); the EMA keeps sharing the generator's embedding buffer."""
         self.generator.load_state_dict(sd["generator"])
         self.g_ema.load_state_dict(sd["g_ema"])
-        self.g_ema.embedding = self.generator.embedding
+        share_embedding(self.g_ema, self.generator)
         self.discriminator.load_state_dict(sd["discriminator"])
         self.g_opt.load_state_dict(sd["g_opt"])
         self.d_opt.load_state_dict(sd["d_opt"])
@@ -83,10 +83,23 @@ def make_optimizers(cfg: TrainConfig, g_params, d_params):
 
 def build_models(cfg: TrainConfig, seed: int = 0):
     """(generator, discriminator) as ``cfg`` describes them, on the CPU,
-    seeded from ``seed`` and ``seed + 1``."""
-    gen = StyledGenerator.from_config(cfg, seed=seed)
+    seeded from ``seed`` and ``seed + 1``: GIF's conditional G, or
+    StyleGAN3-T's for a :class:`~gif_tpu_torch.train.config.StyleGAN3Config`."""
+    if cfg.architecture == "stylegan3-t":
+        from gif_tpu_torch.models.stylegan3 import StyleGAN3Generator
+
+        gen = StyleGAN3Generator.from_config(cfg, seed=seed)
+    else:
+        gen = StyledGenerator.from_config(cfg, seed=seed)
     disc = Discriminator.from_config(cfg, seed=seed + 1)
     return gen, disc
+
+
+def share_embedding(g_ema: torch.nn.Module, gen: torch.nn.Module) -> None:
+    """Point the EMA at the generator's frozen identity embedding (GIF's G;
+    StyleGAN3's has none)."""
+    if hasattr(gen, "embedding"):
+        g_ema.embedding = gen.embedding
 
 
 def create_train_state(cfg: TrainConfig, seed: int = 0, device=None) -> TrainState:
@@ -98,7 +111,7 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, device=None) -> TrainSta
     gen, disc = build_models(cfg, seed)
     gen, disc = gen.to(dev), disc.to(dev)
     g_ema = copy.deepcopy(gen).requires_grad_(False)
-    g_ema.embedding = gen.embedding  # a frozen buffer: one copy serves both
+    share_embedding(g_ema, gen)  # a frozen buffer: one copy serves both
     g_opt, d_opt = make_optimizers(cfg, gen.parameters(), disc.parameters())
     return TrainState(
         step=0, generator=gen, discriminator=disc, g_ema=g_ema, g_opt=g_opt, d_opt=d_opt,

@@ -250,7 +250,9 @@ def make_train_step(
     generator: torch.Generator | None = None,
     group=None,
 ):
-    """Build ``train_step(state, batch, draws=None) -> (state, metrics)``.
+    """Build ``train_step(state, batch, draws=None) -> (state, metrics)``
+(for a StyleGAN3 config, :func:`gif_tpu_torch.train.uncond_step.make_uncond_train_step`'s,
+with ``res`` unused).
 
     ``batch`` holds ``real_image`` (B, S, S, 3) in [-1, 1], ``flame`` (B,
     236), ``indices`` (B,) identity indices and, unless
@@ -299,6 +301,10 @@ def make_train_step(
     ``used_samples`` grows by the global batch.  Every rank must call the
     step in lockstep with a replica of the same state.
     """
+    if cfg.architecture == "stylegan3-t":
+        from gif_tpu_torch.train.uncond_step import make_uncond_train_step
+
+        return make_uncond_train_step(cfg, device=device, generator=generator, group=group)
     reg = cfg.gen_reg_type.lower()
     if reg not in GEN_REG_TYPES:
         raise ValueError(f"gen_reg_type {cfg.gen_reg_type!r} is not one of {GEN_REG_TYPES}")

@@ -141,3 +141,23 @@ def analytic_generator_forward_flops(cfg, batch: int) -> float:
         # ToRGB 1x1.
         total += 2.0 * batch * hw * c_out * 3
     return total
+
+
+def analytic_stylegan3_generator_forward_flops(cfg, batch: int) -> float:
+    """Dense FLOPs of one StyleGAN3 G forward over ``batch`` rows
+    (:mod:`gif_tpu_torch.models.stylegan3`): the mapping MLP and the
+    input's affine, the input's 1x1 channel mixing, and per synthesis
+    layer its style affine and its modulated convolution (full padding: a
+    k x k conv producing an (in + k - 1)-sized map).  The filtered leaky
+    ReLU's FIR passes are not counted, as the blur is not above."""
+    from gif_tpu_torch.models.stylegan3 import W_DIM, synthesis_schedule
+
+    sched = synthesis_schedule(cfg.max_size, cfg.channel_base, cfg.max_channels, num_fp16_res=cfg.num_fp16_res)
+    first = sched[0]
+    total = 2.0 * cfg.nmlp_for_z_to_w * W_DIM * W_DIM + 2.0 * W_DIM * 4
+    total += 2.0 * first["size"] ** 2 * first["channels"] ** 2
+    for s in sched[1:]:
+        out = s["in_size"] + s["kernel"] - 1
+        total += 2.0 * W_DIM * s["in_channels"]
+        total += 2.0 * out * out * s["out_channels"] * s["in_channels"] * s["kernel"] ** 2
+    return batch * total

@@ -2,7 +2,9 @@
 a card.  Every kernel computes in its plain version's arithmetic order
 with explicitly rounded operations, so the bar is equality — except the
 bilinear scatter (kernel 6), whose atomics add in no fixed order: its bar
-is ``max |got - plain| <= 1e-5 * max |plain| + 1e-7``.
+is ``max |got - plain| <= 1e-5 * max |plain| + 1e-7``; and StyleGAN3's
+filtered leaky ReLU, whose tiles sum in another order than the plain
+version's depthwise convolutions (its bars are stated with its tests).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch (skip the JAX-importing conftest there):
@@ -641,3 +643,84 @@ def test_discriminator_r1_step_runs_channels_last_without_copies(cuda_device):
     assert min(delta[1], delta[3], delta[5], delta[7]) > 0 and delta[8] == 0, delta
     assert bool(torch.isfinite(d_loss)) and float(r1) > 0
     assert all(g.stride() == p.stride() for g, p in zip(grads, disc.parameters()))
+
+
+# StyleGAN3-T's filtered leaky ReLU (csrc/filtered_lrelu.cu) at every
+# distinct (up, down, size, channels, padding) of the 1024 px schedule,
+# batch 1, in the dtype its layer runs in.  The kernel sums in another
+# order than the plain version's depthwise convolutions (tiles, separable
+# passes), so the bars are tolerances: float32 outputs within 1e-5 of the
+# largest; bf16 outputs within one bf16 step (2**-7 relative: both round
+# an f32 sum, taken in two orders, once) plus 1e-5 of the largest; dx by
+# norm within 1e-5 (f32) or 2**-8 (bf16: the same single rounding, as
+# noise), where an activation's derivative may also flip for an
+# upsampled sample within round-off of 0; db, float32 from the unrounded
+# dx on both sides, within 1e-5 of the channel's sum of |dx|.
+def _sg3_cases():
+    from gif_tpu_torch.models.stylegan3 import synthesis_schedule
+
+    cases = {}
+    for s in synthesis_schedule(1024)[1:]:
+        if not s["torgb"]:
+            key = (s["in_size"] + s["kernel"] - 1, s["out_channels"], s["up"], s["down"], s["padding"],
+                   s["low_precision"])
+            cases.setdefault(key, s)
+    return list(cases.values())
+
+
+SG3_CASES = _sg3_cases()
+
+
+def _flrelu_inputs(spec, device):
+    from gif_tpu_torch.device import set_tf32_policy
+    from gif_tpu_torch.ops import filtered_lrelu as fl
+
+    set_tf32_policy()  # the plain version's float32 convolutions, in full float32
+    g = torch.Generator(device=device).manual_seed(spec["out_size"] * 1000 + spec["out_channels"])
+    size = spec["in_size"] + spec["kernel"] - 1
+    dtype = torch.bfloat16 if spec["low_precision"] else torch.float32
+    x = torch.randn((1, spec["out_channels"], size, size), generator=g, device=device).to(dtype)
+    b = torch.randn(spec["out_channels"], generator=g, device=device) * 0.2
+    fu = torch.from_numpy(spec["up_filter"]).to(device)
+    fd = torch.from_numpy(spec["down_filter"]).to(device)
+    args = (spec["up"], spec["down"], spec["padding"], 2**0.5, 0.2, 256.0)
+    return fl, x, b, fu, fd, args
+
+
+@pytest.mark.parametrize("spec", SG3_CASES, ids=[s["name"] for s in SG3_CASES])
+def test_filtered_lrelu_kernel_matches_plain(cuda_device, spec):
+    fl, x, b, fu, fd, args = _flrelu_inputs(spec, cuda_device)
+    before = fl.filtered_lrelu.launches
+    got = fl.filtered_lrelu(x, fu, fd, b, *args)
+    want = fl.filtered_lrelu_plain(x, fu, fd, b, *args)
+    torch.cuda.synchronize()
+    assert fl.filtered_lrelu.launches == before + 1
+    assert got.shape == want.shape == (1, spec["out_channels"], spec["out_size"], spec["out_size"])
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    rtol = 2**-7 if x.dtype == torch.bfloat16 else 0.0
+    err = ((got - want).abs() - rtol * want.abs()).max().item()
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("spec", SG3_CASES, ids=[s["name"] for s in SG3_CASES])
+def test_filtered_lrelu_backward_kernel_matches_plain(cuda_device, spec):
+    fl, x, b, fu, fd, args = _flrelu_inputs(spec, cuda_device)
+    grads = []
+    for fn in (fl.filtered_lrelu, fl.filtered_lrelu_plain):
+        xi, bi = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fn(xi, fu, fd, bi, *args)
+        if not grads:
+            dy = torch.randn(y.shape, generator=torch.Generator(device=cuda_device).manual_seed(7),
+                             device=cuda_device).to(y.dtype)
+        before = fl.filtered_lrelu_backward.launches
+        y.backward(dy)
+        grads.append((xi.grad.float(), bi.grad.float(), fl.filtered_lrelu_backward.launches - before))
+    torch.cuda.synchronize()
+    (dx, db, n_kernel), (dx_p, db_p, n_plain) = grads
+    assert (n_kernel, n_plain) == (1, 0)
+    bar = 2**-8 if x.dtype == torch.bfloat16 else 1e-5
+    rel = (torch.linalg.vector_norm(dx - dx_p) / torch.linalg.vector_norm(dx_p)).item()
+    assert rel <= bar, rel
+    db_bar = 1e-5 * dx_p.abs().sum((0, 2, 3))
+    assert bool(((db - db_p).abs() <= db_bar).all()), ((db - db_p).abs() / db_bar).max().item()
